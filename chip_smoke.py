@@ -1,0 +1,450 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch/CUDA port (``src/repro_torch``) end to end on one GPU.
+
+    python3 chip_smoke.py            # the full run, on one CUDA card
+    python3 chip_smoke.py --small    # a short first run after a kernel edit
+    python3 chip_smoke.py --profile  # only the out-of-core path, traced and
+                                     # profiled: where its wall time goes
+
+Phases, each of which asserts (any failure exits non-zero):
+
+1. device — the card's name and power limit;
+2. build — nvcc builds every kernel from ``src/repro_torch/kernels/csrc``;
+3. kernels — each hand-written kernel at the main path's shapes and at the
+   reference test shapes, held against its plain PyTorch version on the card
+   (fp32 atol 1e-5, bf16 atol 2e-2) and timed with CUDA events beside its
+   bound, the plain version and a cuDNN convolution computing the same sweep;
+4. kernel path — the quickstart heat program on ``Session("cuda")`` (2-D,
+   16384^2 interior, 4 steps) and a 3-D heat program (512^3, 2 steps),
+   checked against ``Session("reference")`` (rtol 1e-4, atol 1e-5); kernel
+   launch counts are zeroed just before and read just after;
+5. out-of-core path — the 2-D heat program plus a sum/min summary loop at a
+   24576^2 interior (u and tmp homes: 4.83 GB, pinned) on
+   ``Session("ooc")`` with a device capacity of a third of the homes, then on
+   ``"ooc-async"`` (bit-identical to ``ooc``), then on ``"cuda"`` (fields
+   atol 1e-5, reductions rtol 1e-3).  Peak device memory must stay below the
+   homes' size.  Then one- and two-slot pools, whose slots are reused at
+   once, at a quarter of the size, against ``"cuda"``.
+
+Every line but the last two is a JSON record.  The line before the last
+JSON ``ok`` line lists every ported kernel; the card's ``nvidia-smi`` name
+and power limit are printed on their own line before it.  The script
+imports nothing of JAX or of the JAX package.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import statistics
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
+
+from repro_torch.core import ReductionSpec, Session, datasets_from_numpy  # noqa: E402
+from repro_torch.core import Block  # noqa: E402
+from repro_torch.kernels import build, ops, ref  # noqa: E402
+from repro_torch.kernels import star2d_kernel, star3d_kernel  # noqa: E402
+
+# Published H100 SXM peaks at 700 W (NVIDIA data sheet): HBM bandwidth and
+# float32 arithmetic outside the tensor cores.  The sweeps accumulate in fp32.
+PEAK_BYTES_S = 3.35e12
+PEAK_FP32_S = 67e12
+FLOPS_PER_POINT = {"stencil2d": 7, "stencil3d": 10}
+C2 = (0.5, 0.125, 0.125)
+C3 = (0.4, 0.1, 0.1, 0.1)
+TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
+SHAPES_2D = [(8, 8), (33, 47), (128, 128), (65, 130), (7, 256)]
+SHAPES_3D = [(4, 8, 8), (9, 17, 21), (16, 32, 32)]
+SOURCES = {
+    "stencil2d": ("src/repro_torch/kernels/csrc/stencil2d.cu",
+                  "src/repro/kernels/stencil2d.py:36"),
+    "stencil3d": ("src/repro_torch/kernels/csrc/stencil3d.cu",
+                  "src/repro/kernels/stencil3d.py:38"),
+}
+
+
+def emit(**rec) -> None:
+    print(json.dumps(rec), flush=True)
+
+
+def check(cond: bool, what: str) -> None:
+    if not cond:
+        raise RuntimeError(f"check failed: {what}")
+
+
+def time_ms(fn, reps: int, warmup: int = 3) -> float:
+    """Median milliseconds of ``fn`` on the current stream, by CUDA events."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+    return statistics.median(times)
+
+
+# -- phase 1 and 2 ------------------------------------------------------------------
+
+
+def device_phase() -> str:
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
+    emit(phase="device", name=torch.cuda.get_device_name(0),
+         count=torch.cuda.device_count(), nvidia_smi=smi,
+         torch=torch.__version__, cuda=torch.version.cuda)
+    return smi
+
+
+def build_phase() -> None:
+    t0 = time.perf_counter()
+    info = build.build()
+    check(sorted(info) == sorted(SOURCES), f"built {sorted(info)}")
+    emit(phase="build", seconds=time.perf_counter() - t0,
+         kernels={n: {"seconds": v["seconds"], "built": v["built"],
+                      "ptxas": [ln.strip() for ln in v["log"].splitlines()
+                                if "registers" in ln or "spill" in ln]}
+                  for n, v in info.items()})
+
+
+# -- phase 3: the kernels against their plain versions ------------------------------
+
+
+def _cross_weight(coeffs, ndim: int, dtype) -> torch.Tensor:
+    """The sweep as a convolution weight (a cross of 2*ndim+1 taps)."""
+    w = torch.zeros((1, 1) + (3,) * ndim, dtype=dtype, device="cuda")
+    centre = (0, 0) + (1,) * ndim
+    w[centre] = coeffs[0]
+    for d in range(ndim):
+        for k in (0, 2):
+            idx = list(centre)
+            idx[2 + d] = k
+            w[tuple(idx)] = coeffs[1 + d]
+    return w
+
+
+def kernel_case(name: str, shape, dtype, reps: int, seed: int) -> dict:
+    """One kernel at one interior shape: error against the plain version
+    and, with ``reps``, the timings."""
+    fn = ops.stencil2d if name == "stencil2d" else ops.stencil3d
+    plain = ref.stencil2d_ref if name == "stencil2d" else ref.stencil3d_ref
+    coeffs = C2 if name == "stencil2d" else C3
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    x = torch.rand(tuple(s + 2 for s in shape), generator=gen, device="cuda",
+                   dtype=torch.float32).to(dtype)
+    got = fn(x, coeffs)
+    want = plain(x, coeffs)
+    torch.cuda.synchronize()
+    err = (got.float() - want.float()).abs().max().item()
+    check(got.shape == want.shape and err <= TOL[dtype],
+          f"{name} {shape} {dtype}: max_abs_err {err}")
+    rec = {"name": name, "shape": list(shape), "dtype": str(dtype).split(".")[-1],
+           "max_abs_err": err}
+    if not reps:
+        return rec
+    ndim = len(shape)
+    conv = F.conv2d if ndim == 2 else F.conv3d
+    weight = _cross_weight(coeffs, ndim, dtype)
+    xb = x.reshape((1, 1) + tuple(x.shape))
+    lib = conv(xb, weight)
+    lib_err = (lib.reshape(got.shape).float() - want.float()).abs().max().item()
+    check(lib_err <= 10 * TOL[dtype], f"{name} library yardstick err {lib_err}")
+    del got, want, lib
+    nbytes = (x.numel() + int(np.prod(shape))) * x.element_size()
+    flops = FLOPS_PER_POINT[name] * int(np.prod(shape))
+    t_bytes, t_ops = nbytes / PEAK_BYTES_S * 1e3, flops / PEAK_FP32_S * 1e3
+    rec.update(
+        ms=time_ms(lambda: fn(x, coeffs), reps),
+        plain_ms=time_ms(lambda: plain(x, coeffs), max(3, reps // 4)),
+        library_ms=time_ms(lambda: conv(xb, weight), reps),
+        bound_ms=max(t_bytes, t_ops),
+        bound_by="bytes" if t_bytes >= t_ops else "operations",
+        bytes=nbytes, flops=flops)
+    return rec
+
+
+def kernels_phase(n2d: int, n3d: int, reps: int) -> dict:
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    for i, s in enumerate(SHAPES_2D):
+        for dtype in (torch.float32, torch.bfloat16):
+            emit(phase="kernel_check", **kernel_case("stencil2d", s, dtype, 0, i))
+    for i, s in enumerate(SHAPES_3D):
+        emit(phase="kernel_check", **kernel_case("stencil3d", s, torch.float32, 0, i))
+    path = {}
+    for name, shape, dtype in (("stencil2d", (n2d, n2d), torch.float32),
+                               ("stencil2d", (n2d, n2d), torch.bfloat16),
+                               ("stencil3d", (n3d,) * 3, torch.float32)):
+        rec = kernel_case(name, shape, dtype, reps, seed=100)
+        emit(phase="kernel_time", **rec)
+        if dtype == torch.float32:
+            path[name] = rec
+        torch.cuda.empty_cache()
+    return path
+
+
+# -- the heat programs ----------------------------------------------------------
+
+
+def heat_inputs(shape, seed: int):
+    """Padded u/tmp homes for an interior ``shape`` (ring included), from a seed."""
+    rng = np.random.default_rng(seed)
+    u = np.zeros(tuple(s + 2 for s in shape), np.float32)
+    u[(slice(1, -1),) * len(shape)] = rng.random(shape, dtype=np.float32)
+    return {"u": u, "tmp": np.zeros_like(u)}
+
+
+def heat(sess: Session, homes, steps: int, summary: bool = False,
+         rounds: int = 1, prof=None):
+    """The quickstart heat program (a star sweep into tmp, then a commit
+    back into u) over the interior minus its outer ring, plus an optional
+    sum/min summary loop, recorded and flushed ``rounds`` times on the same
+    datasets: every round after the first replays the cached plan.  Returns
+    (u, {reduction: value} of the last round, [wall seconds of each flush]);
+    ``prof`` (a torch profiler) records the last flush only."""
+    blk = Block("grid", tuple(s - 2 for s in homes["u"].shape))
+    dats = datasets_from_numpy(blk, homes, halo=1)
+    if sess.config.backend != "reference" and sess.config.device == "cuda":
+        for d in dats.values():
+            d.pin()                      # set-up, outside the timed flushes
+    u, tmp = dats["u"], dats["tmp"]
+    box = tuple((1, s - 1) for s in blk.size)
+    diffuse = (star2d_kernel("u", "tmp", (0.0, 0.25, 0.25)) if blk.ndim == 2
+               else star3d_kernel("u", "tmp", (0.4, 0.1, 0.1, 0.1)))
+    walls = []
+    for r in range(rounds):
+        for s in range(steps):
+            sess.par_loop(f"diffuse{s}", blk, box, [u, tmp], diffuse)
+            sess.par_loop(f"commit{s}", blk, box, [tmp, u],
+                          lambda acc: {"u": acc("tmp")})
+        if summary:
+            sess.par_loop("summary", blk, box, [u],
+                          lambda acc: {"usum": acc("u").sum(), "umin": acc("u").min()},
+                          reductions=[ReductionSpec("usum"), ReductionSpec("umin", "min")])
+        profiled = prof is not None and r == rounds - 1
+        torch.cuda.synchronize()
+        if profiled:
+            prof.start()
+        t0 = time.perf_counter()
+        sess.flush()
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        if profiled:
+            prof.stop()
+    reds = ({n: float(sess.reduction(n)) for n in ("usum", "umin")}
+            if summary else {})
+    out = sess.fetch(u)
+    sess.close()
+    return out, reds, walls
+
+
+def compare(a, b, rtol, atol) -> float:
+    err = float(np.abs(a - b).max())
+    check(a.shape == b.shape and np.isfinite(a).all(), "finite fields of one shape")
+    check(np.allclose(a, b, rtol=rtol, atol=atol), f"fields differ (max {err})")
+    return err
+
+
+# -- phase 4: the kernel path -----------------------------------------------------
+
+
+def kernel_path_phase(n2d: int, n3d: int) -> dict:
+    ops.stencil2d.launches = 0
+    ops.stencil3d.launches = 0
+    runs = {}
+    for label, shape, steps in (("2d", (n2d + 2, n2d + 2), 4),
+                                ("3d", (n3d + 2,) * 3, 2)):
+        homes = heat_inputs(shape, seed=1)
+        sess = Session("cuda")
+        got, _, (wall,) = heat(sess, homes, steps)
+        runs[label] = (sess.backend, got, wall, homes, steps)
+    launches = {"stencil2d": ops.stencil2d.launches,
+                "stencil3d": ops.stencil3d.launches}
+    for label, (backend, got, wall, homes, steps) in runs.items():
+        want, _, (ref_wall,) = heat(Session("reference"), homes, steps)
+        err = compare(got, want, rtol=1e-4, atol=1e-5)
+        check(backend.pallas_loops == steps and backend.fallback_loops == steps,
+              f"{label}: {backend.pallas_loops} kernel loops")
+        emit(phase="kernel_path", program=f"heat{label}",
+             interior=list(got.shape), steps=steps,
+             kernel_loops=backend.pallas_loops, wall_s=wall,
+             reference_wall_s=ref_wall, max_abs_err_vs_reference=err)
+    check(launches == {"stencil2d": 4, "stencil3d": 2}, f"launches {launches}")
+    emit(phase="kernel_path_launches", **launches)
+    return launches
+
+
+# -- phase 5: the out-of-core path ------------------------------------------------
+
+
+def ooc_phase(n: int, steps: int, rounds: int = 2) -> None:
+    """Two rounds of the program per session: the first plans the chain
+    (cold), the second replays the cached plan (a steady-state step)."""
+    homes = heat_inputs((n, n), seed=2)
+    home_bytes = sum(a.nbytes for a in homes.values())
+    cap = home_bytes / 3
+    results = {}
+    for backend in ("ooc", "ooc-async"):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        sess = Session(backend, hw="p100-pcie", capacity_bytes=cap, cyclic=True,
+                       prefetch=True)
+        got, reds, walls = heat(sess, homes, steps, summary=True, rounds=rounds)
+        peak = torch.cuda.max_memory_allocated() - base
+        st = sess.transfer_stats()
+        hist = sess.history
+        busy = {lane: st["lanes"].get(lane, {}).get("service", {}).get("sum", 0.0)
+                for lane in ("up", "down")}
+        emit(phase="ooc", backend=backend, interior=[n, n], steps=steps,
+             rounds=rounds, chains=len(hist), tiles=[h.num_tiles for h in hist],
+             bytes_up=st["bytes_up_raw"], bytes_down=st["bytes_down_raw"],
+             wall_s=walls, plan_time_s=sess.plan_stats()["plan_time_s"],
+             h2d_GBps_busy=st["bytes_up_raw"] / busy["up"] / 1e9,
+             d2h_GBps_busy=st["bytes_down_raw"] / busy["down"] / 1e9,
+             h2d_GBps_copy=st["bytes_up_raw"] / st["copy_s"]["up"] / 1e9,
+             d2h_GBps_copy=st["bytes_down_raw"] / st["copy_s"]["down"] / 1e9,
+             lane_busy_s=busy, lane_copy_s=st["copy_s"],
+             modelled_s=[h.modelled_s for h in hist],
+             peak_device_bytes=peak, capacity_bytes=cap, home_bytes=home_bytes,
+             reductions=reds)
+        check(all(h.num_tiles > 1 for h in hist), "ran out of core")
+        check(peak < home_bytes, f"peak {peak} B not below the homes {home_bytes} B")
+        results[backend] = (got, reds)
+    a, b = results["ooc"], results["ooc-async"]
+    check(torch.equal(torch.from_numpy(a[0]), torch.from_numpy(b[0]))
+          and a[1] == b[1], "ooc-async is bit-identical to ooc")
+    want, want_reds, walls = heat(Session("cuda"), homes, steps, summary=True,
+                                  rounds=rounds)
+    err = compare(a[0], want, rtol=0.0, atol=1e-5)
+    for k in want_reds:
+        check(np.isclose(a[1][k], want_reds[k], rtol=1e-3),
+              f"reduction {k}: {a[1][k]} vs {want_reds[k]}")
+    emit(phase="ooc_check", ooc_async_bit_identical=True,
+         max_abs_err_vs_cuda=err, cuda_wall_s=walls, reductions_cuda=want_reds)
+
+
+def slot_pool_phase(n: int, steps: int) -> None:
+    """The data plane's reuse hazards on the card: with one slot every edge
+    carry overlaps its own slot, with two every upload reuses the slot whose
+    download was just submitted.  Both lane modes must match ``cuda``."""
+    homes = heat_inputs((n, n), seed=3)
+    want, want_reds, _ = heat(Session("cuda"), homes, steps, summary=True)
+    for slots in (1, 2):
+        for backend in ("ooc", "ooc-async"):
+            sess = Session(backend, num_slots=slots, num_tiles=8,
+                           capacity_bytes=float("inf"))
+            got, reds, walls = heat(sess, homes, steps, summary=True)
+            err = compare(got, want, rtol=0.0, atol=1e-5)
+            check(all(np.isclose(reds[k], want_reds[k], rtol=1e-3) for k in reds),
+                  f"{backend} {slots} slots: reductions {reds} vs {want_reds}")
+            emit(phase="slot_pool", backend=backend, num_slots=slots, tiles=8,
+                 interior=[n, n], max_abs_err_vs_cuda=err, wall_s=walls)
+
+
+def profile_phase(n: int, steps: int) -> None:
+    """The out-of-core path once more per backend, with the span tracer on
+    and torch.profiler around the replayed round's flush: host time by plan
+    op (the tracer's dispatch spans), lane spans, and device time by kernel
+    (CUPTI)."""
+    from collections import defaultdict
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    homes = heat_inputs((n, n), seed=2)
+    cap = sum(a.nbytes for a in homes.values()) / 3
+    # Round 0 plans the chain; round 1 replays it and is the one profiled.
+    for backend in ("ooc", "ooc-async"):
+        sess = Session(backend, hw="p100-pcie", capacity_bytes=cap, cyclic=True,
+                       prefetch=True, trace=True)
+        tracer = sess.trace()
+        prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+        _, _, (_, wall) = heat(sess, homes, steps, summary=True, rounds=2,
+                               prof=prof)
+        host = defaultdict(float)
+        for sp in tracer.spans():
+            if (sp.args or {}).get("chain") != 1:
+                continue
+            if sp.cat == "op":
+                host[sp.name] += sp.t_end - sp.t_start
+            elif sp.cat in ("lane", "chain"):
+                host[f"{sp.track}:{sp.cat}"] += sp.t_end - sp.t_start
+        # Device-side activities (kernels, memcpys) only; their union is the
+        # time the card was busy, their sum the work it did (streams overlap).
+        device = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+        busy_us, end = 0.0, float("-inf")
+        for a, b in sorted((e.time_range.start, e.time_range.end) for e in device):
+            busy_us += max(0.0, b - max(a, end))
+            end = max(end, b)
+        by_kernel = defaultdict(lambda: [0.0, 0])
+        for e in device:
+            by_kernel[e.name[:80]][0] += e.time_range.elapsed_us() / 1e3
+            by_kernel[e.name[:80]][1] += 1
+        top = sorted(by_kernel.items(), key=lambda kv: kv[1][0], reverse=True)
+        top_cpu = sorted(prof.key_averages(), key=lambda e: e.self_cpu_time_total,
+                         reverse=True)
+        emit(phase="profile", backend=backend, interior=[n, n], steps=steps,
+             wall_s=wall, host_s_by_span=dict(host),
+             device_busy_s=busy_us / 1e6, device_idle_share=1 - busy_us / 1e6 / wall,
+             device_work_s=sum(v[0] for v in by_kernel.values()) / 1e3,
+             plan_time_s=sess.plan_stats()["plan_time_s"],
+             top_device_ms=[[k, v[0], v[1]] for k, v in top[:12]],
+             top_host_ms=[[e.key, e.self_cpu_time_total / 1e3, e.count]
+                          for e in top_cpu[:12]])
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--small", action="store_true",
+                    help="cut every size (a short first run after a kernel edit)")
+    ap.add_argument("--profile", action="store_true",
+                    help="only profile the out-of-core path (no result line)")
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; this script runs only on a GPU",
+              file=sys.stderr)
+        return 1
+    n2d, n3d, nooc, reps = (16384, 512, 24576, 20)
+    if args.small:
+        n2d, n3d, nooc, reps = (1024, 64, 2048, 5)
+        emit(cut="--small", kernel_2d=n2d, kernel_3d=n3d, ooc=nooc, reps=reps)
+    smi = device_phase()
+    if args.profile:
+        profile_phase(nooc, steps=4)
+        return 0
+    build_phase()
+    path = kernels_phase(n2d, n3d, reps)
+    launches = kernel_path_phase(n2d, n3d)
+    torch.cuda.empty_cache()
+    ooc_phase(nooc, steps=4)
+    slot_pool_phase(nooc // 4, steps=4)
+    print(json.dumps({"kernels": [
+        {"name": name, "route": "cuda", "source": SOURCES[name][0],
+         "replaces": SOURCES[name][1], "launches": launches[name],
+         "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],
+         "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
+         "bound_by": rec["bound_by"], "library_ms": rec["library_ms"]}
+        for name, rec in path.items()]}), flush=True)
+    print(smi, flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,126 @@
+"""repro_torch.core — runtime skewed tiling + out-of-core streaming execution
+of stencil loop chains, in PyTorch.  The counterpart of ``repro.core`` with
+the same public names; see each module's docstring for what it copies,
+ports or leaves to a later ROADMAP item."""
+from .backends import (
+    KernelBackend,
+    ReferenceBackend,
+    available_backends,
+    make_backend,
+    register_backend,
+)
+from .block import Block
+from .dataset import Dataset, datasets_from_numpy, make_dataset
+from .dependency import ChainInfo, analyze_chain, chain_signature, plan_signature
+from .device import resolve_device
+from .engine import SliceBoundsError, TileEngine
+from .executor import (
+    ChainPlan,
+    ChainStats,
+    OOCConfig,
+    OutOfCoreExecutor,
+    ResidentExecutor,
+)
+from .interp import (
+    DataPlaneInterpreter,
+    InterpResult,
+    LedgerInterpreter,
+    SpecState,
+    simulate_plan,
+)
+from .mesh import DeviceMesh, HaloSpec, MeshError, ShardGeometry, parse_mesh
+from .plan import (
+    CarryEdge,
+    Compute,
+    Download,
+    Elide,
+    Evict,
+    FetchHome,
+    HaloExchange,
+    HaloPack,
+    HaloUnpack,
+    PinUpload,
+    Plan,
+    PlanError,
+    PlanOp,
+    Prefetch,
+    SpillHome,
+    Upload,
+    WritebackPinned,
+    build_plan,
+    format_plan,
+    plans_from_json,
+    plans_to_json,
+)
+from .store import BackingStore, RamStore, StoreError, make_store
+from .program import (
+    ExecutionConfig,
+    Session,
+    SessionClosedError,
+    StencilProgram,
+    StencilValidationError,
+    infer_args,
+    trace_kernel,
+)
+from .loop import (
+    INC,
+    READ,
+    RW,
+    WRITE,
+    AccessMode,
+    Accessor,
+    Arg,
+    ParallelLoop,
+    ReductionSpec,
+)
+from .memory import (
+    GB,
+    KNL_7210,
+    P100_NVLINK,
+    P100_PCIE,
+    PRESETS,
+    HardwareModel,
+    TransferLedger,
+)
+from .stencil import Stencil, box_stencil, offset_stencil, point_stencil, star_stencil
+from .tiling import TileSchedule, choose_num_tiles, make_tile_schedule
+from .transfer import (
+    Codec,
+    ResidencyError,
+    ResidencyManager,
+    TransferEngine,
+    TransferError,
+    available_codecs,
+    get_codec,
+    register_codec,
+)
+
+__all__ = [
+    "Block", "Dataset", "make_dataset", "datasets_from_numpy",
+    "ChainInfo", "analyze_chain", "chain_signature", "plan_signature",
+    "resolve_device", "SliceBoundsError", "TileEngine",
+    "ChainPlan", "ChainStats", "OOCConfig", "OutOfCoreExecutor",
+    "ResidentExecutor",
+    "Session", "SessionClosedError", "StencilProgram", "ExecutionConfig",
+    "StencilValidationError",
+    "infer_args", "trace_kernel",
+    "available_backends", "make_backend", "register_backend",
+    "ReferenceBackend", "KernelBackend",
+    "AccessMode", "Accessor", "Arg",
+    "ParallelLoop", "ReductionSpec", "READ", "WRITE", "RW", "INC",
+    "GB", "KNL_7210", "P100_NVLINK", "P100_PCIE", "PRESETS",
+    "HardwareModel", "TransferLedger", "Stencil", "box_stencil",
+    "offset_stencil", "point_stencil", "star_stencil", "TileSchedule",
+    "choose_num_tiles", "make_tile_schedule",
+    "Codec", "register_codec", "get_codec", "available_codecs",
+    "TransferEngine", "TransferError", "ResidencyManager", "ResidencyError",
+    "Plan", "PlanError", "PlanOp", "Upload", "Download", "Compute",
+    "CarryEdge", "Elide",
+    "Evict", "Prefetch", "PinUpload", "WritebackPinned", "FetchHome",
+    "SpillHome", "HaloPack", "HaloExchange", "HaloUnpack", "build_plan",
+    "format_plan", "plans_to_json", "plans_from_json",
+    "DeviceMesh", "HaloSpec", "MeshError", "ShardGeometry", "parse_mesh",
+    "BackingStore", "RamStore", "StoreError", "make_store",
+    "LedgerInterpreter", "DataPlaneInterpreter", "InterpResult", "SpecState",
+    "simulate_plan",
+]

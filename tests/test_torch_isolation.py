@@ -1,0 +1,76 @@
+"""The port stands alone: ``repro_torch`` and ``chip_smoke.py`` import neither
+JAX nor the JAX package, and its entry points refuse to fall back to the CPU."""
+import ast
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+
+torch = pytest.importorskip("torch")
+
+ROOT = Path(__file__).resolve().parents[1]
+PORT = ROOT / "src" / "repro_torch"
+SMOKE = ROOT / "chip_smoke.py"
+
+_BLOCKED = """
+import sys
+sys.modules["jax"] = None
+sys.modules["repro"] = None
+sys.path.insert(0, {src!r})
+sys.path.insert(0, {root!r})
+import repro_torch, repro_torch.core, repro_torch.kernels, repro_torch.obs
+import chip_smoke
+from repro_torch.core import Session
+s = Session("ooc", device="cpu", num_tiles=2, capacity_bytes=float("inf"))
+assert "jax" not in [m.split(".")[0] for m in sys.modules if sys.modules[m] is not None]
+print("isolated")
+"""
+
+
+def test_imports_with_jax_and_repro_blocked():
+    code = _BLOCKED.format(src=str(ROOT / "src"), root=str(ROOT))
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=120, env=env, cwd=str(ROOT))
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().endswith("isolated")
+
+
+def _imported_roots(path: Path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name.split(".")[0]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
+            yield node.module.split(".")[0]
+
+
+@pytest.mark.parametrize("path", sorted(PORT.rglob("*.py")) + [SMOKE],
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_jax_or_repro_import(path):
+    roots = set(_imported_roots(path))
+    assert not roots & {"jax", "jaxlib", "repro"}, roots
+
+
+def test_default_device_never_falls_back_to_cpu():
+    from repro_torch.core import Session
+
+    if torch.cuda.is_available():
+        assert Session("ooc").backend.device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            Session("ooc")
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            Session("cuda")
+
+
+def test_chip_smoke_fails_without_a_card():
+    if torch.cuda.is_available():
+        pytest.skip("this machine has a card: chip_smoke.py would run")
+    out = subprocess.run([sys.executable, str(SMOKE)], capture_output=True,
+                         text=True, timeout=120, cwd=str(ROOT))
+    assert out.returncode != 0
+    assert '"ok"' not in out.stdout
