@@ -14,11 +14,22 @@ Phases, each of which asserts (any failure exits non-zero):
    reference test shapes, held against its plain PyTorch version on the card
    (fp32 atol 1e-5, bf16 atol 2e-2) and timed with CUDA events beside its
    bound, the plain version and a cuDNN convolution computing the same sweep;
+   ``chain2d`` also at the reference's chain shapes and ragged ones, its fp32
+   result ``torch.equal`` to K launches of ``stencil2d``;
 4. kernel path — the quickstart heat program on ``Session("cuda")`` (2-D,
    16384^2 interior, 4 steps) and a 3-D heat program (512^3, 2 steps),
    checked against ``Session("reference")`` (rtol 1e-4, atol 1e-5); kernel
    launch counts are zeroed just before and read just after;
-5. out-of-core path — the 2-D heat program plus a sum/min summary loop at a
+5. chain2d path — ``repro_torch.kernels.chain2d`` at a 16384^2 interior for
+   K in 1, 2, 4, 8, 16 and 24 (two passes: one launch runs at most 16
+   sweeps) in fp32 and K = 8 in bf16, its launch count zeroed just before
+   and read just after; then each result held against the plain version
+   (and, in fp32, ``torch.equal`` to K launches of ``stencil2d``), and the
+   kernel, the plain version, K x ``stencil2d``, K x ``F.conv2d`` (no single
+   PyTorch call computes K sweeps) and the bound timed, beside the
+   fused-against-unfused traffic model of ``benchmarks/kernel_bench.py`` for
+   the kernel's actual tiling;
+6. out-of-core path — the 2-D heat program plus a sum/min summary loop at a
    24576^2 interior (u and tmp homes: 4.83 GB, pinned) on
    ``Session("ooc")`` with a device capacity of a third of the homes, then on
    ``"ooc-async"`` (bit-identical to ``ooc``), then on ``"cuda"`` (fields
@@ -62,11 +73,21 @@ C3 = (0.4, 0.1, 0.1, 0.1)
 TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
 SHAPES_2D = [(8, 8), (33, 47), (128, 128), (65, 130), (7, 256)]
 SHAPES_3D = [(4, 8, 8), (9, 17, 21), (16, 32, 32)]
+# chain2d checks: (interior, steps); the reference's chain test shapes, then
+# ragged tiles, a 1x1 interior, and chains deeper than one launch.
+CHAIN_SHAPES = ([((40, 56), k) for k in (1, 2, 4, 6)]
+                + [((24, 32), 3), ((4, 4), 1), ((17, 9), 2), ((40, 23), 4),
+                   ((33, 47), 3), ((7, 256), 6), ((4, 4), 4), ((1, 1), 16),
+                   ((130, 260), 16), ((33, 47), 20), ((65, 300), 40)])
+CHAIN_PATH = ([(k, torch.float32) for k in (1, 2, 4, 8, 16, 24)]
+              + [(8, torch.bfloat16)])
 SOURCES = {
     "stencil2d": ("src/repro_torch/kernels/csrc/stencil2d.cu",
                   "src/repro/kernels/stencil2d.py:36"),
     "stencil3d": ("src/repro_torch/kernels/csrc/stencil3d.cu",
                   "src/repro/kernels/stencil3d.py:38"),
+    "chain2d": ("src/repro_torch/kernels/csrc/chain2d.cu",
+                "src/repro/kernels/chain2d.py:45"),
 }
 
 
@@ -176,6 +197,36 @@ def kernel_case(name: str, shape, dtype, reps: int, seed: int) -> dict:
     return rec
 
 
+def unfused(x: torch.Tensor, steps: int) -> torch.Tensor:
+    """K launches of the port's stencil2d on the shrinking input."""
+    for _ in range(steps):
+        x = ops.stencil2d(x, C2)
+    return x
+
+
+def chain_input(shape, steps: int, dtype, seed: int) -> torch.Tensor:
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    return torch.rand(tuple(s + 2 * steps for s in shape), generator=gen,
+                      device="cuda", dtype=torch.float32).to(dtype)
+
+
+def chain_check(x: torch.Tensor, got: torch.Tensor, steps: int) -> dict:
+    """The kernel's result against the plain version and, in fp32, against K
+    launches of stencil2d (bit for bit)."""
+    want = ref.chain2d_ref(x, C2, steps)
+    torch.cuda.synchronize()
+    err = (got.float() - want.float()).abs().max().item()
+    check(got.shape == want.shape and got.dtype == x.dtype and err <= TOL[x.dtype],
+          f"chain2d {tuple(got.shape)} K={steps} {x.dtype}: max_abs_err {err}")
+    rec = {"name": "chain2d", "shape": list(got.shape), "steps": steps,
+           "dtype": str(x.dtype).split(".")[-1], "max_abs_err": err}
+    if x.dtype == torch.float32:
+        rec["equals_unfused"] = torch.equal(got, unfused(x, steps))
+        check(rec["equals_unfused"], f"chain2d {tuple(got.shape)} K={steps}: "
+              "fused differs from K launches of stencil2d")
+    return rec
+
+
 def kernels_phase(n2d: int, n3d: int, reps: int) -> dict:
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -184,6 +235,10 @@ def kernels_phase(n2d: int, n3d: int, reps: int) -> dict:
             emit(phase="kernel_check", **kernel_case("stencil2d", s, dtype, 0, i))
     for i, s in enumerate(SHAPES_3D):
         emit(phase="kernel_check", **kernel_case("stencil3d", s, torch.float32, 0, i))
+    for i, (s, k) in enumerate(CHAIN_SHAPES):
+        for dtype in (torch.float32, torch.bfloat16):
+            x = chain_input(s, k, dtype, seed=i)
+            emit(phase="kernel_check", **chain_check(x, ops.chain2d(x, C2, k), k))
     path = {}
     for name, shape, dtype in (("stencil2d", (n2d, n2d), torch.float32),
                                ("stencil2d", (n2d, n2d), torch.bfloat16),
@@ -287,7 +342,109 @@ def kernel_path_phase(n2d: int, n3d: int) -> dict:
     return launches
 
 
-# -- phase 5: the out-of-core path ------------------------------------------------
+# -- phase 5: the chain2d path ------------------------------------------------------
+
+
+def chain_traffic_model(H: int, W: int, K: int, tile_rows: int, tile_cols: int,
+                        dtype_bytes: int = 4) -> dict:
+    """Device-memory bytes for K sweeps of one launch: unfused (a read and a
+    write of the interior per sweep) against the fused kernel (each block
+    reads its (TM+2K) x (TN+2K) window once and writes its tile), and the
+    fused kernel's redundant compute: the points its blocks sweep, summed
+    over the shrinking regions, per useful point, less one.  The port of
+    ``benchmarks/kernel_bench.py::chain_traffic_model`` with 2-D tiles;
+    ``tile_cols = W`` gives that model's full-width row slabs and its bytes
+    (its redundant fraction counts only the window rows)."""
+    unfused_bytes = K * 2 * H * W * dtype_bytes
+    n_tiles = -(-H // tile_rows) * -(-W // tile_cols)
+    fused_read = n_tiles * (tile_rows + 2 * K) * (tile_cols + 2 * K) * dtype_bytes
+    fused = fused_read + H * W * dtype_bytes
+    swept = n_tiles * sum((tile_rows + 2 * (K - s)) * (tile_cols + 2 * (K - s))
+                          for s in range(1, K + 1))
+    return {
+        "unfused_bytes": unfused_bytes,
+        "fused_bytes": fused,
+        "traffic_reduction": unfused_bytes / fused,
+        "redundant_compute_frac": swept / (K * H * W) - 1,
+    }
+
+
+def chain_model(H: int, W: int, K: int, dtype_bytes: int) -> dict:
+    """The traffic model summed over the passes ``ops.chain2d`` runs, each at
+    its own tiling (intermediates are fp32, as the input of every multi-pass
+    case timed here)."""
+    h, w = H + 2 * K, W + 2 * K
+    fused = swept = useful = 0.0
+    passes = []
+    for k in ops.split_steps(K, ops.chain2d_max_steps()):
+        t = ops.chain2d_tiling(k)
+        h, w = h - 2 * k, w - 2 * k
+        m = chain_traffic_model(h, w, k, t["rows"], t["cols"], dtype_bytes)
+        fused += m["fused_bytes"]
+        swept += (1 + m["redundant_compute_frac"]) * k * h * w
+        useful += k * h * w
+        passes.append(dict(t, steps=k))
+    unfused_bytes = 2 * K * H * W * dtype_bytes
+    return {"passes": passes, "unfused_bytes": unfused_bytes, "fused_bytes": fused,
+            "traffic_reduction": unfused_bytes / fused,
+            "redundant_compute_frac": swept / useful - 1}
+
+
+def chain2d_phase(n: int, reps: int):
+    """Drive ``chain2d`` at an n^2 interior for every case of CHAIN_PATH,
+    with its launch count zeroed just before and read just after; then check
+    and time each case.  Returns ({"chain2d": the K = 8 fp32 record},
+    {"chain2d": the launch count})."""
+    inputs = {case: chain_input((n, n), case[0], case[1], seed=200 + i)
+              for i, case in enumerate(CHAIN_PATH)}
+    torch.cuda.synchronize()
+    ops.chain2d.launches = 0
+    outs = {case: ops.chain2d(x, C2, case[0]) for case, x in inputs.items()}
+    torch.cuda.synchronize()
+    launches = ops.chain2d.launches
+    limit = ops.chain2d_max_steps()
+    want = sum(len(ops.split_steps(k, limit)) for k, _ in CHAIN_PATH)
+    check(launches == want, f"chain2d launches {launches}, expected {want}")
+    emit(phase="chain2d_path_launches", chain2d=launches)
+    path = None
+    for K, dtype in CHAIN_PATH:
+        x = inputs.pop((K, dtype))
+        rec = chain_check(x, outs.pop((K, dtype)), K)
+        w = _cross_weight(C2, 2, dtype)
+
+        def convs(x=x, K=K, w=w):
+            u = x.reshape((1, 1) + tuple(x.shape))
+            for _ in range(K):
+                u = F.conv2d(u, w)
+            return u
+
+        lib_err = (convs().reshape(n, n).float()
+                   - ref.chain2d_ref(x, C2, K).float()).abs().max().item()
+        check(lib_err <= 10 * TOL[dtype], f"chain2d K={K} library yardstick err {lib_err}")
+        nbytes = (x.numel() + n * n) * x.element_size()
+        flops = FLOPS_PER_POINT["stencil2d"] * sum((n + 2 * (K - s)) ** 2
+                                                   for s in range(1, K + 1))
+        t_bytes, t_ops = nbytes / PEAK_BYTES_S * 1e3, flops / PEAK_FP32_S * 1e3
+        rec.update(
+            ms=time_ms(lambda: ops.chain2d(x, C2, K), reps),
+            plain_ms=time_ms(lambda: ref.chain2d_ref(x, C2, K), max(3, reps // 4)),
+            unfused_ms=time_ms(lambda: unfused(x, K), reps),
+            library_ms=time_ms(convs, reps),
+            library=f"{K} x F.conv2d (cuDNN, TF32 off)",
+            library_max_abs_err=lib_err,
+            bound_ms=max(t_bytes, t_ops),
+            bound_by="bytes" if t_bytes >= t_ops else "operations",
+            bytes=nbytes, flops=flops,
+            model=chain_model(n, n, K, x.element_size()))
+        emit(phase="chain2d_time", **rec)
+        if (K, dtype) == (8, torch.float32):
+            path = rec
+        del x
+        torch.cuda.empty_cache()
+    return {"chain2d": path}, {"chain2d": launches}
+
+
+# -- phase 6: the out-of-core path ------------------------------------------------
 
 
 def ooc_phase(n: int, steps: int, rounds: int = 2) -> None:
@@ -430,6 +587,10 @@ def main() -> int:
     path = kernels_phase(n2d, n3d, reps)
     launches = kernel_path_phase(n2d, n3d)
     torch.cuda.empty_cache()
+    chain_path, chain_launches = chain2d_phase(n2d, reps)
+    path.update(chain_path)
+    launches.update(chain_launches)
+    torch.cuda.empty_cache()
     ooc_phase(nooc, steps=4)
     slot_pool_phase(nooc // 4, steps=4)
     print(json.dumps({"kernels": [
@@ -437,7 +598,9 @@ def main() -> int:
          "replaces": SOURCES[name][1], "launches": launches[name],
          "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],
          "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
-         "bound_by": rec["bound_by"], "library_ms": rec["library_ms"]}
+         "bound_by": rec["bound_by"], "library_ms": rec["library_ms"],
+         **({"steps": rec["steps"], "library": rec["library"]}
+            if "steps" in rec else {})}
         for name, rec in path.items()]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

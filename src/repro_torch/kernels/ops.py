@@ -15,19 +15,21 @@ integer; set it to 0 to start a count).
 from __future__ import annotations
 
 import ctypes
-from typing import Sequence, Tuple
+import operator
+from typing import Dict, List, Sequence, Tuple
 
 import torch
 
 from . import build
-from .ref import stencil2d_ref, stencil3d_ref
+from .ref import chain2d_ref, stencil2d_ref, stencil3d_ref
 
 _DTYPES = {torch.float32: "f32", torch.bfloat16: "bf16"}
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 
 
-def _symbol(name: str, dtype: torch.dtype, nint: int, nfloat: int):
-    fn = getattr(build.load(name), f"{name}_{_DTYPES[dtype]}")
+def _symbol(name: str, types: str, nint: int, nfloat: int):
+    """The C entry point ``<name>_<types>`` (``types`` as in ``_DTYPES``)."""
+    fn = getattr(build.load(name), f"{name}_{types}")
     fn.argtypes = [_P, _P] + [_I] * nint + [_F] * nfloat + [_P]
     fn.restype = ctypes.c_int
     return fn
@@ -74,7 +76,7 @@ def stencil2d(x: torch.Tensor, coeffs: Sequence[float]) -> torch.Tensor:
     H, W = x.shape[0] - 2, x.shape[1] - 2
     out = torch.empty((H, W), dtype=x.dtype, device=x.device)
     if out.numel():
-        _launch(_symbol("stencil2d", x.dtype, 2, 3), "stencil2d", x, out,
+        _launch(_symbol("stencil2d", _DTYPES[x.dtype], 2, 3), "stencil2d", x, out,
                 H, W, *c)
         stencil2d.launches += 1
     return out
@@ -92,14 +94,78 @@ def stencil3d(x: torch.Tensor, coeffs: Sequence[float]) -> torch.Tensor:
         raise ValueError(f"stencil3d: H={H} exceeds the kernel's grid")
     out = torch.empty((D, H, W), dtype=x.dtype, device=x.device)
     if out.numel():
-        _launch(_symbol("stencil3d", x.dtype, 3, 4), "stencil3d", x, out,
+        _launch(_symbol("stencil3d", _DTYPES[x.dtype], 3, 4), "stencil3d", x, out,
                 D, H, W, *c)
         stencil3d.launches += 1
     return out
 
 
+def split_steps(steps: int, limit: int) -> List[int]:
+    """``steps`` sweeps as the fewest passes of at most ``limit`` sweeps,
+    balanced so that every pass carries the same halo overhead."""
+    n = -(-steps // limit)
+    return [steps // n + (1 if p < steps % n else 0) for p in range(n)]
+
+
+def chain2d_max_steps() -> int:
+    """The most sweeps one launch of the CUDA kernel runs.  Builds the
+    kernel."""
+    fn = build.load("chain2d").chain2d_max_steps
+    fn.argtypes, fn.restype = [], ctypes.c_int
+    return fn()
+
+
+def chain2d(x: torch.Tensor, coeffs: Sequence[float], steps: int) -> torch.Tensor:
+    """K fused 5-point sweeps. x: (H+2K, W+2K) padded; coeffs (c0, cx, cy) as
+    floats; returns (H, W) in x's dtype, computed in fp32 throughout.
+
+    On CUDA a chain deeper than :func:`chain2d_max_steps` runs in
+    :func:`split_steps` passes through fp32 intermediates;
+    ``chain2d.launches`` counts every pass."""
+    _check(x, 2, "chain2d")
+    c = _coeffs(coeffs, 3)
+    if isinstance(steps, bool):
+        raise TypeError("chain2d: steps must be an int, got a bool")
+    steps = operator.index(steps)
+    if steps < 1:
+        raise ValueError(f"chain2d: steps must be positive, got {steps}")
+    if x.shape[0] <= 2 * steps or x.shape[1] <= 2 * steps:
+        raise ValueError(f"chain2d: padded shape {tuple(x.shape)} has no interior "
+                         f"after {steps} sweeps")
+    if x.device.type == "cpu":
+        return chain2d_ref(x, c, steps)
+    u = x
+    parts = split_steps(steps, chain2d_max_steps())
+    for p, k in enumerate(parts):
+        dtype = x.dtype if p == len(parts) - 1 else torch.float32
+        src, dst = _DTYPES[u.dtype], _DTYPES[dtype]
+        out = torch.empty((u.shape[0] - 2 * k, u.shape[1] - 2 * k), dtype=dtype,
+                          device=x.device)
+        _launch(_symbol("chain2d", src if src == dst else f"{src}_{dst}", 3, 3),
+                "chain2d", u, out, out.shape[0], out.shape[1], k, *c)
+        chain2d.launches += 1
+        u = out
+    return u
+
+
+def chain2d_tiling(steps: int) -> Dict[str, int]:
+    """The CUDA kernel's tiling for one launch of ``steps`` sweeps (at most
+    :func:`chain2d_max_steps`): output tile ``rows`` x ``cols``, ``threads``
+    per block, ``smem_bytes`` of shared memory per block.  Builds the
+    kernel."""
+    vals = [ctypes.c_int() for _ in range(4)]
+    fn = build.load("chain2d").chain2d_tile
+    fn.argtypes = [_I] + [ctypes.POINTER(ctypes.c_int)] * 4
+    fn.restype = ctypes.c_int
+    if fn(int(steps), *(ctypes.byref(v) for v in vals)) != 0:
+        raise ValueError(f"chain2d: no single launch runs {steps} sweeps")
+    return dict(zip(("rows", "cols", "threads", "smem_bytes"),
+                    (v.value for v in vals)))
+
+
 stencil2d.launches = 0
 stencil3d.launches = 0
+chain2d.launches = 0
 
 
 # -- declarative star-sweep kernels (the "cuda" backend's fast path) -------------

@@ -35,3 +35,19 @@ def stencil3d_ref(x: torch.Tensor, coeffs: Sequence[float]) -> torch.Tensor:
         + cy * (u[1:-1, 1:-1, :-2] + u[1:-1, 1:-1, 2:])
     )
     return out.to(x.dtype)
+
+
+def chain2d_ref(x: torch.Tensor, coeffs: Sequence[float], steps: int) -> torch.Tensor:
+    """K sequential full-grid 5-point sweeps on (H+2K, W+2K) input -> (H, W).
+
+    Float32 accumulation throughout (matching the kernel), cast at the end.
+    """
+    u = x.float()
+    c0, cx, cy = (float(c) for c in coeffs)
+    for _ in range(steps):
+        u = (
+            c0 * u[1:-1, 1:-1]
+            + cx * (u[:-2, 1:-1] + u[2:, 1:-1])
+            + cy * (u[1:-1, :-2] + u[1:-1, 2:])
+        )
+    return u.to(x.dtype)

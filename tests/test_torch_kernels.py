@@ -1,6 +1,9 @@
 """The port's kernel wrappers on CPU tensors (their plain versions) against
 the JAX package's Pallas kernels in interpret mode and its oracles, on the
 shapes and tolerances of tests/test_kernels.py."""
+import importlib.util
+from pathlib import Path
+
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -8,10 +11,19 @@ torch = pytest.importorskip("torch")
 import jax.numpy as jnp  # noqa: E402
 import numpy as np  # noqa: E402
 
+try:
+    from hypothesis import given, settings
+    from hypothesis import strategies as st
+    HAVE_HYPOTHESIS = True
+except ImportError:  # pragma: no cover
+    HAVE_HYPOTHESIS = False
+
+from repro.kernels import chain2d as jax_chain2d  # noqa: E402
 from repro.kernels import stencil2d as jax_stencil2d  # noqa: E402
 from repro.kernels import stencil3d as jax_stencil3d  # noqa: E402
 from repro.kernels import star2d_kernel as jax_star2d  # noqa: E402
 from repro.kernels import star3d_kernel as jax_star3d  # noqa: E402
+from repro.kernels.ref import chain2d_ref as jax_chain_ref  # noqa: E402
 from repro.kernels.ref import stencil2d_ref as jax_ref2d  # noqa: E402
 from repro.kernels.ref import stencil3d_ref as jax_ref3d  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
@@ -19,6 +31,7 @@ from repro_torch.kernels import ref as torch_ref  # noqa: E402
 
 C2 = np.array([0.5, 0.125, 0.125], np.float32)
 C3 = np.array([0.4, 0.1, 0.1, 0.1], np.float32)
+ROOT = Path(__file__).resolve().parents[1]
 DTYPES = {"float32": (jnp.float32, torch.float32, 1e-5),
           "bfloat16": (jnp.bfloat16, torch.bfloat16, 2e-2)}
 
@@ -34,8 +47,10 @@ def _pair(arr, dtype):
 def launches():
     ops.stencil2d.launches = 0
     ops.stencil3d.launches = 0
+    ops.chain2d.launches = 0
     yield
-    assert ops.stencil2d.launches == 0 and ops.stencil3d.launches == 0, \
+    assert (ops.stencil2d.launches == 0 and ops.stencil3d.launches == 0
+            and ops.chain2d.launches == 0), \
         "a CPU tensor must never launch a CUDA kernel"
 
 
@@ -75,6 +90,7 @@ def test_wrapper_is_its_plain_version_on_cpu(launches):
     x3 = torch.from_numpy(rng.rand(6, 9, 11).astype(np.float32))
     assert torch.equal(ops.stencil2d(x2, C2), torch_ref.stencil2d_ref(x2, C2))
     assert torch.equal(ops.stencil3d(x3, C3), torch_ref.stencil3d_ref(x3, C3))
+    assert torch.equal(ops.chain2d(x2, C2, 3), torch_ref.chain2d_ref(x2, C2, 3))
 
 
 @pytest.mark.parametrize("bad, err", [
@@ -96,3 +112,106 @@ def test_star_kernels_tag_like_jax():
     for port, ref, coeffs in ((ops.star2d_kernel, jax_star2d, C2),
                               (ops.star3d_kernel, jax_star3d, C3)):
         assert port("u", "t", coeffs).pallas_op == ref("u", "t", coeffs).pallas_op
+
+
+@pytest.mark.parametrize("steps", [1, 2, 4, 6])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_chain2d_matches_jax(steps, dtype, launches):
+    H, W = 40, 56
+    rng = np.random.RandomState(100 + steps)
+    xj, xt, tol = _pair(rng.rand(H + 2 * steps, W + 2 * steps), dtype)
+    got = ops.chain2d(xt, C2, steps)
+    assert got.shape == (H, W) and got.dtype == xt.dtype
+    got = got.float().numpy()
+    np.testing.assert_allclose(got, np.asarray(jax_chain2d(xj, C2, steps), np.float32),
+                               atol=tol)
+    np.testing.assert_allclose(got, np.asarray(jax_chain_ref(xj, C2, steps), np.float32),
+                               atol=tol)
+
+
+def test_chain2d_ref_equals_repeated_stencil2d_ref():
+    """Fused K sweeps == K single sweeps, bit for bit in fp32."""
+    K, H, W = 3, 24, 32
+    x = torch.from_numpy(np.random.RandomState(3).rand(H + 2 * K, W + 2 * K)
+                         .astype(np.float32))
+    seq = x
+    for _ in range(K):
+        seq = torch_ref.stencil2d_ref(seq, C2)
+    assert torch.equal(torch_ref.chain2d_ref(x, C2, K), seq)
+
+
+def _chain2d_case(h, w, steps, seed):
+    rng = np.random.RandomState(seed)
+    xj, xt, tol = _pair(rng.rand(h + 2 * steps, w + 2 * steps), "float32")
+    np.testing.assert_allclose(ops.chain2d(xt, C2, steps).numpy(),
+                               np.asarray(jax_chain_ref(xj, C2, steps)), atol=tol)
+
+
+if HAVE_HYPOTHESIS:
+    @given(h=st.integers(4, 40), w=st.integers(4, 40), steps=st.integers(1, 4),
+           seed=st.integers(0, 999))
+    @settings(max_examples=10, deadline=None)
+    def test_chain2d_property(h, w, steps, seed):
+        _chain2d_case(h, w, steps, seed)
+else:  # pragma: no cover
+    @pytest.mark.parametrize("h,w,steps,seed", [
+        (4, 4, 1, 0), (17, 9, 2, 3), (40, 23, 4, 42),
+    ])
+    def test_chain2d_property(h, w, steps, seed):
+        """Fixed-seed fallback when hypothesis is not installed."""
+        _chain2d_case(h, w, steps, seed)
+
+
+@pytest.mark.parametrize("bad, steps, err", [
+    (torch.zeros(7, 7, 7), 1, ValueError),                   # rank 3
+    (torch.zeros(7, 7, dtype=torch.float64), 1, TypeError),
+    (torch.zeros(7, 7), 0, ValueError),
+    (torch.zeros(7, 7), -2, ValueError),
+    (torch.zeros(6, 9), 3, ValueError),                      # no interior left
+    (torch.zeros(9, 6), 3, ValueError),
+    (torch.zeros(7, 7), 1.5, TypeError),
+    (torch.zeros(7, 7), True, TypeError),
+])
+def test_chain2d_rejects_bad_inputs(bad, steps, err, launches):
+    with pytest.raises(err):
+        ops.chain2d(bad, C2, steps)
+
+
+@pytest.mark.parametrize("steps, parts", [
+    (1, [1]), (16, [16]), (17, [9, 8]), (24, [12, 12]), (40, [14, 13, 13]),
+])
+def test_chain2d_split_steps(steps, parts):
+    assert ops.split_steps(steps, 16) == parts
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_chain2d_passes_through_fp32_equal_one_pass(dtype):
+    """A chain deeper than one launch runs in passes with fp32 intermediates
+    (the CUDA wrapper's split): the result is that of one pass, bit for bit."""
+    K, H, W = 20, 9, 13
+    _, x, _ = _pair(np.random.RandomState(5).rand(H + 2 * K, W + 2 * K), dtype)
+    u = x
+    for k in ops.split_steps(K, 16):
+        u = torch_ref.chain2d_ref(u.float(), C2, k)
+    assert torch.equal(u.to(x.dtype), torch_ref.chain2d_ref(x, C2, K))
+
+
+def _load(relpath, name):
+    spec = importlib.util.spec_from_file_location(name, ROOT / relpath)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@pytest.mark.parametrize("H, W, K, bm", [
+    (4096, 4096, 2, 256), (4096, 4096, 8, 256), (1000, 333, 5, 64),
+])
+def test_chain_traffic_model_matches_jax(H, W, K, bm):
+    """chip_smoke's 2-D traffic model with full-width tiles gives the bytes of
+    benchmarks/kernel_bench.py's row-slab model."""
+    jax_m = _load("benchmarks/kernel_bench.py", "_kernel_bench").chain_traffic_model(
+        H, W, K, block_rows=bm)
+    port_m = _load("chip_smoke.py", "_chip_smoke").chain_traffic_model(H, W, K, bm, W)
+    for key in ("unfused_bytes", "fused_bytes", "traffic_reduction"):
+        assert port_m[key] == jax_m[key], key
+    assert port_m["redundant_compute_frac"] > 0
