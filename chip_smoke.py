@@ -10,23 +10,26 @@ Phases, each of which asserts (any failure exits non-zero):
 
 1. device — the card's name and power limit;
 2. build — nvcc builds every kernel from ``src/repro_torch/kernels/csrc``;
-3. kernels — each hand-written kernel at the main path's shapes and at the
-   reference test shapes, held against its plain PyTorch version on the card
-   (fp32 atol 1e-5, bf16 atol 2e-2) and timed with CUDA events beside its
-   bound, the plain version and a cuDNN convolution computing the same sweep;
-   ``chain2d`` also at the reference's chain shapes and ragged ones, its fp32
-   result ``torch.equal`` to K launches of ``stencil2d``;
+3. kernels — each hand-written kernel at the main path's shapes, at the
+   reference test shapes and at the edges of its tiling, in fp32 and bf16,
+   held against its plain PyTorch version on the card (fp32 ``torch.equal``,
+   bf16 atol 2e-2) and timed with CUDA events beside its bound, the plain
+   version and a cuDNN convolution computing the same sweep (``stencil3d``
+   in bf16 too, though no path launches it); ``chain2d`` also at the
+   reference's chain shapes, ragged ones and every K up to one launch's
+   limit, its fp32 result ``torch.equal`` to K launches of ``stencil2d``;
 4. kernel path — the quickstart heat program on ``Session("cuda")`` (2-D,
    16384^2 interior, 4 steps) and a 3-D heat program (512^3, 2 steps),
    checked against ``Session("reference")`` (rtol 1e-4, atol 1e-5); kernel
    launch counts are zeroed just before and read just after;
 5. chain2d path — ``repro_torch.kernels.chain2d`` at a 16384^2 interior for
-   K in 1, 2, 4, 8, 16 and 24 (two passes: one launch runs at most 16
-   sweeps) in fp32 and K = 8 in bf16, its launch count zeroed just before
-   and read just after; then each result held against the plain version
-   (and, in fp32, ``torch.equal`` to K launches of ``stencil2d``), and the
-   kernel, the plain version, K x ``stencil2d``, K x ``F.conv2d`` (no single
-   PyTorch call computes K sweeps) and the bound timed, beside the
+   K in 1, 2, 4, 8, 16 and 24 (one launch runs at most 12 sweeps, so 16
+   and 24 run in two passes) in fp32 and K = 8 in bf16, its launch count
+   zeroed just before and read just after; then each result held against
+   the plain version (and, in fp32, ``torch.equal`` to K launches of
+   ``stencil2d``), and the kernel, the plain version, K x ``stencil2d``,
+   K x ``F.conv2d`` (no single PyTorch call computes K sweeps) and the
+   bound timed, beside the
    fused-against-unfused traffic model of ``benchmarks/kernel_bench.py`` for
    the kernel's actual tiling;
 6. out-of-core path — the 2-D heat program plus a sum/min summary loop at a
@@ -72,13 +75,20 @@ C2 = (0.5, 0.125, 0.125)
 C3 = (0.4, 0.1, 0.1, 0.1)
 TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
 SHAPES_2D = [(8, 8), (33, 47), (128, 128), (65, 130), (7, 256)]
-SHAPES_3D = [(4, 8, 8), (9, 17, 21), (16, 32, 32)]
+# The reference's shapes, then the z-marching kernel's edges: a single plane,
+# more planes than one z-segment (64), and H and W ragged against its
+# 16 x 64 tile.
+SHAPES_3D = [(4, 8, 8), (9, 17, 21), (16, 32, 32), (1, 8, 64), (1, 9, 70),
+             (130, 20, 67), (65, 9, 129), (3, 100, 5)]
 # chain2d checks: (interior, steps); the reference's chain test shapes, then
 # ragged tiles, a 1x1 interior, and chains deeper than one launch.
 CHAIN_SHAPES = ([((40, 56), k) for k in (1, 2, 4, 6)]
                 + [((24, 32), 3), ((4, 4), 1), ((17, 9), 2), ((40, 23), 4),
                    ((33, 47), 3), ((7, 256), 6), ((4, 4), 4), ((1, 1), 16),
                    ((130, 260), 16), ((33, 47), 20), ((65, 300), 40)])
+# Input columns a warp of csrc/chain2d.cu's wavefront (K >= 2) reads and
+# sweeps (its kStrip).
+CHAIN_STRIP = 128
 CHAIN_PATH = ([(k, torch.float32) for k in (1, 2, 4, 8, 16, 24)]
               + [(8, torch.bfloat16)])
 SOURCES = {
@@ -89,6 +99,22 @@ SOURCES = {
     "chain2d": ("src/repro_torch/kernels/csrc/chain2d.cu",
                 "src/repro/kernels/chain2d.py:45"),
 }
+
+
+def chain_edge_shapes(limit: int):
+    """chain2d checks at the edges of the kernel's tiling, (interior, steps):
+    widths just below, at and just above one strip's output width and a
+    multiple of it plus one, interiors of one row and of a segment's rows
+    less and plus one (K = 3, not a multiple of a lane's 4 columns, and
+    K = 8); then every K from 1 to the per-launch ``limit`` at one ragged
+    shape.  Builds the kernel."""
+    shapes = []
+    for k in (3, 8):
+        t = ops.chain2d_tiling(k)
+        s = t["cols"]
+        shapes += [((13, w), k) for w in (s - 1, s, s + 1, 4 * s + 1)]
+        shapes += [((1, 200), k), ((t["rows"] - 1, 61), k), ((t["rows"] + 1, 61), k)]
+    return shapes + [((37, 300), k) for k in range(1, limit + 1)]
 
 
 def emit(**rec) -> None:
@@ -170,7 +196,8 @@ def kernel_case(name: str, shape, dtype, reps: int, seed: int) -> dict:
     want = plain(x, coeffs)
     torch.cuda.synchronize()
     err = (got.float() - want.float()).abs().max().item()
-    check(got.shape == want.shape and err <= TOL[dtype],
+    check(got.shape == want.shape and err <= TOL[dtype]
+          and (dtype != torch.float32 or torch.equal(got, want)),
           f"{name} {shape} {dtype}: max_abs_err {err}")
     rec = {"name": name, "shape": list(shape), "dtype": str(dtype).split(".")[-1],
            "max_abs_err": err}
@@ -221,6 +248,9 @@ def chain_check(x: torch.Tensor, got: torch.Tensor, steps: int) -> dict:
     rec = {"name": "chain2d", "shape": list(got.shape), "steps": steps,
            "dtype": str(x.dtype).split(".")[-1], "max_abs_err": err}
     if x.dtype == torch.float32:
+        rec["equals_plain"] = torch.equal(got, want)
+        check(rec["equals_plain"], f"chain2d {tuple(got.shape)} K={steps}: "
+              "fused differs from the plain version")
         rec["equals_unfused"] = torch.equal(got, unfused(x, steps))
         check(rec["equals_unfused"], f"chain2d {tuple(got.shape)} K={steps}: "
               "fused differs from K launches of stencil2d")
@@ -234,15 +264,18 @@ def kernels_phase(n2d: int, n3d: int, reps: int) -> dict:
         for dtype in (torch.float32, torch.bfloat16):
             emit(phase="kernel_check", **kernel_case("stencil2d", s, dtype, 0, i))
     for i, s in enumerate(SHAPES_3D):
-        emit(phase="kernel_check", **kernel_case("stencil3d", s, torch.float32, 0, i))
-    for i, (s, k) in enumerate(CHAIN_SHAPES):
+        for dtype in (torch.float32, torch.bfloat16):
+            emit(phase="kernel_check", **kernel_case("stencil3d", s, dtype, 0, i))
+    for i, (s, k) in enumerate(CHAIN_SHAPES
+                               + chain_edge_shapes(ops.chain2d_max_steps())):
         for dtype in (torch.float32, torch.bfloat16):
             x = chain_input(s, k, dtype, seed=i)
             emit(phase="kernel_check", **chain_check(x, ops.chain2d(x, C2, k), k))
     path = {}
     for name, shape, dtype in (("stencil2d", (n2d, n2d), torch.float32),
                                ("stencil2d", (n2d, n2d), torch.bfloat16),
-                               ("stencil3d", (n3d,) * 3, torch.float32)):
+                               ("stencil3d", (n3d,) * 3, torch.float32),
+                               ("stencil3d", (n3d,) * 3, torch.bfloat16)):
         rec = kernel_case(name, shape, dtype, reps, seed=100)
         emit(phase="kernel_time", **rec)
         if dtype == torch.float32:
@@ -346,21 +379,27 @@ def kernel_path_phase(n2d: int, n3d: int) -> dict:
 
 
 def chain_traffic_model(H: int, W: int, K: int, tile_rows: int, tile_cols: int,
-                        dtype_bytes: int = 4) -> dict:
+                        dtype_bytes: int = 4, window_cols: int = 0) -> dict:
     """Device-memory bytes for K sweeps of one launch: unfused (a read and a
-    write of the interior per sweep) against the fused kernel (each block
-    reads its (TM+2K) x (TN+2K) window once and writes its tile), and the
-    fused kernel's redundant compute: the points its blocks sweep, summed
-    over the shrinking regions, per useful point, less one.  The port of
+    write of the interior per sweep) against the fused kernel (each tile's
+    (TM+2K) x (TN+2K) window read once and its TM x TN output written), and
+    the fused kernel's redundant compute: the points it sweeps per useful
+    point, less one.  By default the tile is a window swept over its
+    shrinking valid regions.  With ``window_cols`` it is a wavefront strip
+    of that many input columns, every sweep run over the whole window (the
+    rows that fill the pipeline and the columns gone invalid at its edges
+    included), so a strip sweeps K (TM+2K) window_cols points.  The port of
     ``benchmarks/kernel_bench.py::chain_traffic_model`` with 2-D tiles;
-    ``tile_cols = W`` gives that model's full-width row slabs and its bytes
-    (its redundant fraction counts only the window rows)."""
+    ``tile_cols = W`` gives that model's full-width row slabs and its
+    bytes."""
     unfused_bytes = K * 2 * H * W * dtype_bytes
     n_tiles = -(-H // tile_rows) * -(-W // tile_cols)
-    fused_read = n_tiles * (tile_rows + 2 * K) * (tile_cols + 2 * K) * dtype_bytes
+    window = (tile_rows + 2 * K) * (window_cols or tile_cols + 2 * K)
+    fused_read = n_tiles * window * dtype_bytes
     fused = fused_read + H * W * dtype_bytes
-    swept = n_tiles * sum((tile_rows + 2 * (K - s)) * (tile_cols + 2 * (K - s))
-                          for s in range(1, K + 1))
+    swept = n_tiles * (K * window if window_cols else
+                       sum((tile_rows + 2 * (K - s)) * (tile_cols + 2 * (K - s))
+                           for s in range(1, K + 1)))
     return {
         "unfused_bytes": unfused_bytes,
         "fused_bytes": fused,
@@ -379,7 +418,9 @@ def chain_model(H: int, W: int, K: int, dtype_bytes: int) -> dict:
     for k in ops.split_steps(K, ops.chain2d_max_steps()):
         t = ops.chain2d_tiling(k)
         h, w = h - 2 * k, w - 2 * k
-        m = chain_traffic_model(h, w, k, t["rows"], t["cols"], dtype_bytes)
+        # One sweep runs as a window kernel, more as a wavefront of strips.
+        m = chain_traffic_model(h, w, k, t["rows"], t["cols"], dtype_bytes,
+                                window_cols=CHAIN_STRIP if k > 1 else 0)
         fused += m["fused_bytes"]
         swept += (1 + m["redundant_compute_frac"]) * k * h * w
         useful += k * h * w

@@ -3,10 +3,11 @@
 Each ``csrc/<name>.cu`` compiles with ``nvcc`` for ``sm_90a`` into its own
 shared library with a plain C interface, loaded with ``ctypes``.  Libraries
 go to ``build/repro_torch_kernels/`` at the repository root, named by a hash
-of the source and the compiler flags, so a fresh checkout builds them at
-first use and an edited ``.cu`` rebuilds.  :func:`build` starts one ``nvcc``
-per missing library, all at once.  A missing ``nvcc`` or a failed build
-raises; nothing here falls back.  Nothing runs at import time.
+of the source, the shared headers and the compiler flags, so a fresh
+checkout builds them at first use and an edited ``.cu`` or ``.cuh``
+rebuilds.  :func:`build` starts one ``nvcc`` per missing library, all at
+once.  A missing ``nvcc`` or a failed build raises; nothing here falls
+back.  Nothing runs at import time.
 """
 from __future__ import annotations
 
@@ -32,8 +33,11 @@ def kernel_names() -> List[str]:
 
 
 def library_path(name: str) -> Path:
-    """Where the library for the current ``csrc/<name>.cu`` lives."""
+    """Where the library for the current ``csrc/<name>.cu`` (and the shared
+    ``csrc/*.cuh`` headers it may include) lives."""
     h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 

@@ -1,5 +1,5 @@
-// K fused 2-D 5-point star sweeps for Hopper (sm_90a), the window in shared
-// memory.
+// K fused 2-D 5-point star sweeps for Hopper (sm_90a), as a wavefront of
+// sweeps in registers walking down column strips.
 //
 // Replaces the TPU kernel src/repro/kernels/chain2d.py::chain2d_pallas
 // (body _kernel, wrapper ops.py::chain2d, oracle ref.py::chain2d_ref):
@@ -16,97 +16,138 @@
 // written once, over 3.35 TB/s; 7 flops per point per sweep, summed over the
 // shrinking regions, over 67 TFLOP/s of fp32.  At a 16384^2 fp32 interior
 // with K = 8: (16400^2 + 16384^2) * 4 B = 2.15 GB, 0.64 ms; 15.0 GFLOP,
-// 0.22 ms.  The bytes barely grow with K and the flops grow as K, so the
-// function is bound by bytes up to K ~ 22 and by operations above.  Unfused,
-// K launches of stencil2d move 2*K times the interior.
+// 0.22 ms.  That flop rate counts fused multiply-adds, which would break
+// bit-identity, so the instruction floor lies higher: a point of a sweep
+// issues 7 fp32 instructions (3 multiplies, 4 adds, none contracted) and
+// about half a shuffle, and 132 SMs x 128 lanes x ~1.98 GHz issue about
+// 3.35e13 lane-instructions a second, so a sweep of 16384^2 points costs
+// about 0.060 ms before any redundant point.  With the redundancy of the
+// strips below, that floor passes the 0.64 ms of bytes near K = 9.  Measured
+// on the H100 (PERF.md), the kernel is bound by device memory up to K = 4
+// and by instructions from K = 8.
 //
-// Design.  The Pallas kernel keeps a full-width row slab (bm+2K, W+2K) in
-// VMEM; at W = 16384 that slab is far beyond the 227 KB of shared memory a
-// block may hold, and Hopper's blocks run in no order, so the window is
-// tiled in 2-D.  A block owns a TM x TN output tile and stages its
-// (TM+2K) x (TN+2K) input window, converted to fp32, into shared memory
-// (out-of-range cells of ragged right and bottom tiles are zero-filled, never
-// read from x; they feed only outputs that are masked at the store).  It
-// then runs the sweeps between two fp32 buffers (ping-pong,
-// __syncthreads() between sweeps), each over the region that is still
-// valid, one cell smaller per side per sweep, and the last sweep writes its
-// TM x TN straight to device memory.  Each sweep's region is cut into items
-// of 8 rows by 32 columns, dealt out to the 16 warps in turn: the 32 lanes
-// take neighbouring columns (conflict-free banks, coalesced global loads
-// and stores) and each lane walks down its column keeping the up and centre
-// values in registers, so a point costs three shared loads and one store
-// (and two more loads per item).  Every sum uses __fadd_rn/__fmul_rn in the
-// order of stencil2d.cu, so no FMA is contracted and the fp32 result is
-// bit-identical to the plain version and to K launches of stencil2d.
+// Design, for K >= 2.  A warp owns a column strip of kStrip = 128 input
+// columns, kV = 4 consecutive columns a lane, and walks down a segment of TM
+// output rows.
+// The strip's output is its middle S = 128 - 2K columns, rounded down to a
+// multiple of 8 so that every strip's stores start on a 32-byte sector;
+// neighbouring strips overlap by the rest (the same rows, read by the same
+// block at the same time, so mostly from L2).  Each input row that arrives
+// feeds a pipeline of K sweeps held in registers: sweep s keeps the two
+// previous rows of sweep s-1 (2 kV K registers in all), and when row r of
+// the input arrives, sweep 1 emits row r-1, sweep 2 row r-2, ..., sweep K
+// row r-K, which is stored (masked) when it lies in the output.  Left and
+// right neighbours come from the lane's own registers or, at its first and
+// last column, from the next lanes by __shfl_up_sync/__shfl_down_sync: two
+// shuffles a lane per kV points per sweep, and no shared-memory traffic.
+// The two held rows of each sweep live in three register sets whose roles
+// turn with the step (the row loop is unrolled by three), so no row is ever
+// copied.  Columns that have gone invalid at the strip's edges are computed
+// and thrown away, as a SIMD warp must; so are the 2K rows that fill the
+// pipeline.  Input rows arrive through a ring of kStages rows per warp in
+// shared memory, filled by cp.async kStages - 1 rows ahead of the wavefront
+// (16-byte chunks from the row's aligned-down start, cp_async.cuh), so each
+// warp keeps ~3.5 KB in flight; a finished row goes out through a 512-byte
+// row of shared memory so that each store instruction writes 32 neighbouring
+// columns.  The sweep count is a template parameter, so the register
+// rotation is resolved at compile time (K = 2..kMaxSteps instantiated for
+// each entry point).  Cells beyond the ragged right edge are read as zero
+// and feed only masked outputs.  Every sum uses __fadd_rn/__fmul_rn in the
+// order of stencil2d.cu, so the fp32 result is bit-identical to the plain
+// version and to K launches of stencil2d.
 //
-// Trade-offs of the tile (TM = 64, 512 threads; TN = 128 keeps the stores
-// 128-byte rows):
+// One sweep (K = 1) has nothing to pipeline, and there the wavefront was
+// slower on the H100 than the earlier design, a 2-D window staged in shared
+// memory and swept there (PERF.md): each half of the work alone, reading the
+// input or writing the output, ran near the card's rate, but mixed row by
+// row in every warp the two overlapped less well than whole-window bursts.
+// So K = 1 runs window_kernel below: a 64 x 128 output tile a block of 16
+// warps, its 66 x 130 window read 1.047 times per output point and nothing
+// swept twice.
 //
-//   K        TN   shared/block           window reads  computed     blocks/SM
-//   1        128   34,320 B (one buffer)  1.05x         1.00x        4
-//   2..3     128   71,808-75,040 B        1.10-1.15x    1.02-1.05x   3
-//   4..14    128   78,336-114,816 B       1.20-1.75x    1.07-1.33x   2
-//   15..16    96   94,752-98,304 B        1.93-2.00x    1.41-1.44x   2
+// Trade-offs of the strip (kV = 4, 4 warps a block) from
+// chip_smoke.py::chain_traffic_model with a 128-column window: "reads" is
+// (TM+2K) 128 / (TM S), the input a warp reads per output point; "computed"
+// is the points swept per useful point, the same ratio since every sweep
+// runs over the whole window; "floor" is the instruction floor above times K
+// times "computed", at a 16384^2 interior:
 //
-// "window reads" is (TM+2K)(TN+2K)/(TM*TN), the skirt that neighbouring
-// blocks read again (mostly from L2); "computed" is the points swept,
-// summed over the shrinking regions, per point of useful work.  A larger
-// tile lowers both but holds fewer blocks on an SM, and a block that is
-// staging its window cannot sweep, so the tile keeps at least two blocks on
-// an SM: where two 64 x 128 windows no longer fit, TN drops to 96.  Other
-// tile shapes (32 to 128 rows, 96 or 128 columns, 8 to 32 warps) tried on
-// the H100 were not clearly faster below K = 16.  Above 48 KB the window
-// is dynamic shared memory, enabled per kernel with
-// cudaFuncSetAttribute.  From K = 4 up the time goes to the sweeps, which
-// the shared-memory pipe limits (about 4.25 accesses of 4 bytes per point
-// at 128 bytes a clock per SM), not device memory: fewer accesses per point
-// need register blocking along rows.
+//   K    TM   S     reads = computed   floor ms
+//   2    64   120   1.133              0.14
+//   4    64   120   1.200              0.29
+//   8    256  112   1.214              0.58
+//   12   512  104   1.288              0.93
+//   16   two launches of 8             1.17
 //
-// K beyond kMaxSteps (16): shared memory would hold a window up to K = 45
-// at TN = 96, but with one block per SM and, at K = 24 already, 1.7x the
-// useful points swept and the window read 2.6x.  So the wrapper
-// (ops.py::chain2d) runs ceil(K/16) balanced passes of at most 16 sweeps
-// through fp32 intermediates (entry points chain2d_bf16_f32, chain2d_f32
-// and chain2d_f32_bf16).  That keeps the result fp32 throughout and
-// bit-identical to one pass, at the price of one fp32 write and read of the
-// interior per extra pass.
+// Where device memory bounds the kernel (K <= 4) a short segment was fastest
+// on the H100, though its skirt of 2K rows is read and swept again; where
+// instructions bound it, TM is long enough that the skirt is a few percent
+// and short enough to give the card a few thousand warps at 16384^2.  Tried
+// and no faster: TM from 32 to 1024, 4 to 12 ring rows, 2, 8 or 16 warps a
+// block, 8 columns a lane up to K = 2, stores batched over several rows,
+// streaming stores and L2 prefetch hints.
 //
-// Left for later work: cp.async/TMA staging overlapped with the sweeps,
-// a persistent grid, register blocking along rows.
+// K beyond kMaxSteps (12): the state grows by 8 registers a lane per sweep
+// (ptxas: about 180 at K = 12, two blocks of 4 warps an SM) and the column
+// overhead with it, so a sweep costs more the deeper the launch; one launch
+// of 16 sweeps, built for a trial on the H100, was slower than two launches
+// of 8.  The wrapper (ops.py::chain2d) runs ceil(K/12) balanced passes of 6
+// to 12 sweeps through fp32 intermediates (entry points chain2d_bf16_f32,
+// chain2d_f32 and chain2d_f32_bf16), bit-identical to one pass; an extra
+// pass costs one fp32 write and read of the interior, which the sweeps hide
+// from K = 8 up.
+//
+// Left for later work: reads and writes that overlap better in the
+// wavefront at small K, and skipping the sweeps that only fill the pipeline.
 #include <climits>
 #include <cstdint>
+#include <type_traits>
+#include <utility>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include "cp_async.cuh"
+
 namespace {
 
-constexpr int kMaxSteps = 16;
-constexpr int kTileRows = 64;
-constexpr int kTileCols = 128;     // or kNarrowCols where two wide windows don't fit
-constexpr int kNarrowCols = 96;
-constexpr int kWarps = 16;
-constexpr int kBand = 8;           // rows a lane walks down per work item
-constexpr int kMaxGroups = (kTileCols + 2 * kMaxSteps + 31) / 32;  // window cols / 32
-// Shared memory of an SM (228 KB) split between two blocks, less the 1 KB
-// the SM reserves for each.
-constexpr size_t kTwoBlockBytes = 233472 / 2 - 1024;
+constexpr int kMaxSteps = 12;
+constexpr int kV = 4;              // columns a lane holds
+constexpr int kStrip = 32 * kV;    // input columns a warp holds
+constexpr int kWarps = 4;          // strips a block
+constexpr int kStages = 8;         // ring rows a warp
+// The one-sweep window kernel: output tile, warps a block, rows an item.
+constexpr int kWinRows = 64, kWinCols = 128, kWinWarps = 16, kBand = 8;
 
 struct Tile {
   int rows, cols;
 };
 
-size_t window_bytes(int K, const Tile& t) {
-  const size_t buffers = K == 1 ? 1 : 2;
-  return buffers * (t.rows + 2 * K) * (t.cols + 2 * K) * sizeof(float);
-}
+// The strip's output width, 128 - 2K rounded down to 8 columns so that every
+// strip's stores start on a 32-byte sector.
+__host__ __device__ constexpr int strip_cols(int K) { return (kStrip - 2 * K) / 8 * 8; }
 
 Tile tile_for(int K) {
-  const Tile wide{kTileRows, kTileCols};
-  return window_bytes(K, wide) <= kTwoBlockBytes ? wide : Tile{kTileRows, kNarrowCols};
+  if (K == 1) return {kWinRows, kWinCols};
+  return {K <= 4 ? 64 : K <= 8 ? 256 : 512, strip_cols(K)};
+}
+
+// 16-byte chunks a ring row holds: the strip plus its alignment offset.
+template <typename T>
+__host__ __device__ constexpr int ring_chunks() {
+  return (kStrip + 2 * (16 / static_cast<int>(sizeof(T)) - 1)) /
+         (16 / static_cast<int>(sizeof(T)));
+}
+
+// Shared memory of a block: the warps' rings and store rows.
+template <typename T>
+constexpr int block_bytes() {
+  return kWarps * (kStages * ring_chunks<T>() * 16 + kStrip * static_cast<int>(sizeof(float)));
 }
 
 __device__ __forceinline__ float load(const float* p) { return __ldg(p); }
 __device__ __forceinline__ float load(const __nv_bfloat16* p) { return __bfloat162float(*p); }
+__device__ __forceinline__ float to_float(float v) { return v; }
+__device__ __forceinline__ float to_float(__nv_bfloat16 v) { return __bfloat162float(v); }
 __device__ __forceinline__ void store(float* p, float v) { *p = v; }
 __device__ __forceinline__ void store(__nv_bfloat16* p, float v) { *p = __float2bfloat16(v); }
 
@@ -117,37 +158,143 @@ __device__ __forceinline__ float point(float c0, float cx, float cy, float core,
       __fmul_rn(cy, __fadd_rn(lf, rt)));
 }
 
-// Sweep s over window rows [s, R-s) and cols [s, C-s), reading src.  Not the
-// last sweep: write dst.  The last sweep (s == K): store the tile to out,
-// masked to the (H, W) output.  The region is cut into items of kBand rows
-// by 32 columns, dealt out to the warps in turn; a lane walks down its
-// column of an item.
-template <bool kLast, typename Tout>
-__device__ __forceinline__ void sweep(const float* __restrict__ src,
-                                      float* __restrict__ dst,
-                                      Tout* __restrict__ out, int s, int R,
-                                      int C, int K, int i0, int j0, int H,
-                                      int W, float c0, float cx, float cy) {
-  const int groups = (C - 2 * s + 31) / 32;
-  const int items = groups * ((R - 2 * s + kBand - 1) / kBand);
-  for (int item = threadIdx.y; item < items; item += blockDim.y) {
-    const int rb = s + (item / groups) * kBand;
-    const int c = s + (item % groups) * 32 + threadIdx.x;
-    if (c >= C - s) continue;
-    float up = src[(rb - 1) * C + c];
-    float core = src[rb * C + c];
+// A block of kWarps warps takes kWarps neighbouring strips of one segment of
+// TM output rows; blockIdx.x = segment * groups + strip group.
+template <int K, typename Tin, typename Tout>
+__global__ void __launch_bounds__(32 * kWarps, 1)
+chain2d_kernel(const Tin* __restrict__ x, Tout* __restrict__ out, int H, int W,
+               int TM, int strips, int groups, float c0, float cx, float cy) {
+  constexpr int S = strip_cols(K);
+  constexpr int kChunks = ring_chunks<Tin>();
+  __shared__ __align__(16) unsigned char buf[kWarps][kStages][kChunks * 16];
+  __shared__ __align__(16) float obuf[kWarps][kStrip];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int strip = static_cast<int>(blockIdx.x % groups) * kWarps + warp;
+  if (strip >= strips) return;
+  const int o0 = static_cast<int>(blockIdx.x / groups) * TM;
+  const int c = strip * S;                       // first input and output column
+  const int64_t Wp = static_cast<int64_t>(W) + 2 * K;
+  const int64_t n = (static_cast<int64_t>(H) + 2 * K) * Wp;
+  const int steps = min(TM, H - o0) + 2 * K;     // input rows the warp reads
+  const int valid = Wp - c < kStrip ? static_cast<int>(Wp - c) : kStrip;
+  const Tin* row0 = x + static_cast<int64_t>(o0) * Wp + c;
+  unsigned char(*slots)[kChunks * 16] = buf[warp];
+  float* ob = obuf[warp];
+
+  auto stage = [&](int t) {
+    if (t < steps) {
+      const Tin* p = row0 + t * Wp;
+      for (int k = lane; k < kChunks; k += 32)
+        ring::stage_chunk(slots[t % kStages], p, valid, k, x, n);
+    }
+    ring::commit();
+  };
+  for (int t = 0; t < kStages - 1; ++t) stage(t);
+
+  // R[s]: the two previous rows of u_s that sweep s+1 holds, in three
+  // register sets whose roles turn with the step, so that no row is ever
+  // copied: at phase P the older row is set P, the newer P+1, and the
+  // incoming row goes to P+2 (mod 3).
+  float R[K][3][kV];
+#pragma unroll
+  for (int s = 0; s < K; ++s)
+#pragma unroll
+    for (int q = 0; q < 3; ++q)
+#pragma unroll
+      for (int v = 0; v < kV; ++v) R[s][q][v] = 0.0f;
+
+  auto step = [&](auto phase, int t) {
+    constexpr int a = decltype(phase)::value, b = (a + 1) % 3, d = (a + 2) % 3;
+    ring::wait<kStages - 2>();
+    __syncwarp();
+    stage(t + kStages - 1);     // into the row read at step t-1
+    const Tin* e = reinterpret_cast<const Tin*>(slots[t % kStages]) +
+                   ring::align_offset(row0 + t * Wp) + kV * lane;
+    float u[kV];
+#pragma unroll
+    for (int v = 0; v < kV; ++v)
+      u[v] = kV * lane + v < valid ? to_float(e[v]) : 0.0f;
+#pragma unroll
+    for (int s = 0; s < K; ++s) {
+      const float lf = __shfl_up_sync(0xffffffffu, R[s][b][kV - 1], 1);
+      const float rt = __shfl_down_sync(0xffffffffu, R[s][b][0], 1);
+      float r[kV];
+#pragma unroll
+      for (int v = 0; v < kV; ++v)
+        r[v] = point(c0, cx, cy, R[s][b][v], R[s][a][v], u[v],
+                     v == 0 ? lf : R[s][b][v - 1], v == kV - 1 ? rt : R[s][b][v + 1]);
+#pragma unroll
+      for (int v = 0; v < kV; ++v) {
+        R[s][d][v] = u[v];
+        u[v] = r[v];
+      }
+    }
+    // u is row t-K of u_K in the window, output row o0 + t - 2K.  It goes
+    // through the warp's row of obuf so that each store is 32 neighbouring
+    // columns from a sector boundary.
+    if (t >= 2 * K) {
+      static_assert(kV == 4, "a lane's part of the row is one float4");
+      *reinterpret_cast<float4*>(ob + kV * lane) = make_float4(u[0], u[1], u[2], u[3]);
+      __syncwarp();
+      Tout* o = out + (static_cast<int64_t>(o0) + t - 2 * K) * W + c;
+#pragma unroll
+      for (int v = 0; v < kV; ++v) {
+        const int j = 32 * v + lane;   // output column in the strip
+        if (j < S && c + j < W) store(o + j, ob[j + K]);
+      }
+    }
+  };
+  for (int t = 0; t < steps; t += 3) {
+    step(std::integral_constant<int, 0>{}, t);
+    if (t + 1 == steps) break;
+    step(std::integral_constant<int, 1>{}, t + 1);
+    if (t + 2 == steps) break;
+    step(std::integral_constant<int, 2>{}, t + 2);
+  }
+}
+
+// K = 1: one sweep, so nothing to pipeline.  A block of kWinWarps warps
+// stages the (kWinRows+2) x (kWinCols+2) input window of its output tile,
+// converted to fp32, into shared memory (cells beyond the input zero-filled,
+// feeding only masked outputs), then sweeps it once: items of kBand rows by
+// 32 columns dealt out to the warps, each lane walking down its column with
+// the up and centre values in registers.  Staging whole windows mixes the
+// reads with other blocks' writes better than the wavefront does.
+template <typename Tin, typename Tout>
+__global__ void __launch_bounds__(32 * kWinWarps)
+window_kernel(const Tin* __restrict__ x, Tout* __restrict__ out, int H, int W,
+              int tiles_w, float c0, float cx, float cy) {
+  constexpr int R = kWinRows + 2, C = kWinCols + 2, kGroups = (C + 31) / 32;
+  __shared__ float win[R * C];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int i0 = static_cast<int>(blockIdx.x / tiles_w) * kWinRows;
+  const int j0 = static_cast<int>(blockIdx.x % tiles_w) * kWinCols;
+  const int64_t Wp = static_cast<int64_t>(W) + 2;
+  for (int r = warp; r < R; r += kWinWarps) {
+    float v[kGroups];
+#pragma unroll
+    for (int g = 0; g < kGroups; ++g) {
+      const int c = lane + 32 * g;
+      v[g] = i0 + r < H + 2 && c < C && j0 + c < Wp
+                 ? load(x + (static_cast<int64_t>(i0) + r) * Wp + j0 + c)
+                 : 0.0f;
+    }
+#pragma unroll
+    for (int g = 0; g < kGroups; ++g)
+      if (lane + 32 * g < C) win[r * C + lane + 32 * g] = v[g];
+  }
+  __syncthreads();
+  constexpr int kItems = kWinCols / 32 * (kWinRows / kBand);
+  for (int item = warp; item < kItems; item += kWinWarps) {
+    const int rb = 1 + item / (kWinCols / 32) * kBand;
+    const int c = 1 + item % (kWinCols / 32) * 32 + lane;
+    float up = win[(rb - 1) * C + c], core = win[rb * C + c];
 #pragma unroll
     for (int r = rb; r < rb + kBand; ++r) {
-      if (r >= R - s) break;
-      const float dn = src[(r + 1) * C + c];
-      const float v = point(c0, cx, cy, core, up, dn, src[r * C + c - 1],
-                            src[r * C + c + 1]);
-      if (kLast) {
-        const int oi = i0 + r - K, oj = j0 + c - K;
-        if (oi < H && oj < W) store(out + static_cast<int64_t>(oi) * W + oj, v);
-      } else {
-        dst[r * C + c] = v;
-      }
+      const float dn = win[(r + 1) * C + c];
+      const float v = point(c0, cx, cy, core, up, dn, win[r * C + c - 1], win[r * C + c + 1]);
+      const int oi = i0 + r - 1, oj = j0 + c - 1;
+      if (oi < H && oj < W) store(out + static_cast<int64_t>(oi) * W + oj, v);
       up = core;
       core = dn;
     }
@@ -155,69 +302,52 @@ __device__ __forceinline__ void sweep(const float* __restrict__ src,
 }
 
 template <typename Tin, typename Tout>
-__global__ void __launch_bounds__(32 * kWarps)
-chain2d_kernel(const Tin* __restrict__ x, Tout* __restrict__ out, int H, int W,
-               int K, int TM, int TN, int tiles_w, float c0, float cx,
-               float cy) {
-  extern __shared__ float window[];
-  const int R = TM + 2 * K, C = TN + 2 * K;
-  const int Hp = H + 2 * K, Wp = W + 2 * K;
-  const int i0 = static_cast<int>(blockIdx.x / tiles_w) * TM;
-  const int j0 = static_cast<int>(blockIdx.x % tiles_w) * TN;
-  float* a = window;
-  float* b = window + R * C;
+int launch_window(const void* x, void* out, int H, int W, float c0, float cx,
+                  float cy, cudaStream_t stream) {
+  const int64_t tiles_w = (static_cast<int64_t>(W) + kWinCols - 1) / kWinCols;
+  const int64_t blocks = tiles_w * ((static_cast<int64_t>(H) + kWinRows - 1) / kWinRows);
+  if (blocks > INT_MAX) return static_cast<int>(cudaErrorInvalidConfiguration);
+  window_kernel<Tin, Tout><<<static_cast<unsigned>(blocks), 32 * kWinWarps, 0, stream>>>(
+      static_cast<const Tin*>(x), static_cast<Tout*>(out), H, W,
+      static_cast<int>(tiles_w), c0, cx, cy);
+  return static_cast<int>(cudaGetLastError());
+}
 
-  // Stage the window: a warp per row, kMaxGroups loads in flight per lane.
-  for (int r = threadIdx.y; r < R; r += blockDim.y) {
-    const int gi = i0 + r;
-    float v[kMaxGroups];
-#pragma unroll
-    for (int g = 0; g < kMaxGroups; ++g) {
-      const int c = threadIdx.x + 32 * g;
-      v[g] = (gi < Hp && c < C && j0 + c < Wp)
-                 ? load(x + static_cast<int64_t>(gi) * Wp + j0 + c)
-                 : 0.0f;
-    }
-#pragma unroll
-    for (int g = 0; g < kMaxGroups; ++g) {
-      const int c = threadIdx.x + 32 * g;
-      if (c < C) a[r * C + c] = v[g];
-    }
-  }
-  __syncthreads();
-
-  for (int s = 1; s < K; ++s) {
-    sweep<false, Tout>(a, b, out, s, R, C, K, i0, j0, H, W, c0, cx, cy);
-    __syncthreads();
-    float* t = a;
-    a = b;
-    b = t;
-  }
-  sweep<true, Tout>(a, b, out, K, R, C, K, i0, j0, H, W, c0, cx, cy);
+template <int K, typename Tin, typename Tout>
+int launch_k(const void* x, void* out, int H, int W, float c0, float cx,
+             float cy, cudaStream_t stream) {
+  const Tile t = tile_for(K);
+  const int64_t strips = (static_cast<int64_t>(W) + t.cols - 1) / t.cols;
+  const int64_t groups = (strips + kWarps - 1) / kWarps;
+  const int64_t blocks = groups * ((static_cast<int64_t>(H) + t.rows - 1) / t.rows);
+  if (blocks > INT_MAX) return static_cast<int>(cudaErrorInvalidConfiguration);
+  chain2d_kernel<K, Tin, Tout><<<static_cast<unsigned>(blocks), 32 * kWarps, 0, stream>>>(
+      static_cast<const Tin*>(x), static_cast<Tout*>(out), H, W, t.rows,
+      static_cast<int>(strips), static_cast<int>(groups), c0, cx, cy);
+  return static_cast<int>(cudaGetLastError());
 }
 
 // One launch of K <= kMaxSteps sweeps: x is (H+2K, W+2K) of Tin, out (H, W)
-// of Tout.  Returns the CUDA error of the attribute call or the launch.
+// of Tout.  Returns the CUDA error of the launch.
+template <typename Tin, typename Tout, int... Ks>
+int launch(const void* x, void* out, int H, int W, int K, float c0, float cx,
+           float cy, void* stream, std::integer_sequence<int, Ks...>) {
+  if (K < 1 || K > kMaxSteps || H < 1 || W < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (K == 1) return launch_window<Tin, Tout>(x, out, H, W, c0, cx, cy, s);
+  int err = static_cast<int>(cudaErrorInvalidValue);
+  ((K == Ks + 2 ? (err = launch_k<Ks + 2, Tin, Tout>(x, out, H, W, c0, cx, cy, s))
+                : 0),
+   ...);
+  return err;
+}
+
 template <typename Tin, typename Tout>
 int launch(const void* x, void* out, int H, int W, int K, float c0, float cx,
            float cy, void* stream) {
-  if (K < 1 || K > kMaxSteps || H < 1 || W < 1)
-    return static_cast<int>(cudaErrorInvalidValue);
-  const Tile t = tile_for(K);
-  const int64_t tiles_w = (static_cast<int64_t>(W) + t.cols - 1) / t.cols;
-  const int64_t tiles = tiles_w * ((static_cast<int64_t>(H) + t.rows - 1) / t.rows);
-  if (tiles > INT_MAX) return static_cast<int>(cudaErrorInvalidConfiguration);
-  const size_t smem = window_bytes(K, t);
-  cudaError_t err = cudaFuncSetAttribute(
-      chain2d_kernel<Tin, Tout>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  chain2d_kernel<Tin, Tout>
-      <<<static_cast<unsigned>(tiles), dim3(32, kWarps), smem,
-         static_cast<cudaStream_t>(stream)>>>(
-          static_cast<const Tin*>(x), static_cast<Tout*>(out), H, W, K, t.rows,
-          t.cols, static_cast<int>(tiles_w), c0, cx, cy);
-  return static_cast<int>(cudaGetLastError());
+  return launch<Tin, Tout>(x, out, H, W, K, c0, cx, cy, stream,
+                           std::make_integer_sequence<int, kMaxSteps - 1>{});
 }
 
 }  // namespace
@@ -225,16 +355,19 @@ int launch(const void* x, void* out, int H, int W, int K, float c0, float cx,
 // The most sweeps one launch runs; the wrapper splits deeper chains.
 extern "C" int chain2d_max_steps() { return kMaxSteps; }
 
-// The tiling one launch of ``steps`` sweeps uses: output tile rows and cols,
-// threads per block, dynamic shared memory per block in bytes.
+// The tiling one launch of ``steps`` sweeps uses: the output rows and cols a
+// warp owns (a segment of its strip; for one sweep, the block's window
+// tile), threads per block, and shared memory per block in bytes (for an
+// fp32 input).
 extern "C" int chain2d_tile(int steps, int* rows, int* cols, int* threads,
                             int* smem_bytes) {
   if (steps < 1 || steps > kMaxSteps) return static_cast<int>(cudaErrorInvalidValue);
   const Tile t = tile_for(steps);
   *rows = t.rows;
   *cols = t.cols;
-  *threads = 32 * kWarps;
-  *smem_bytes = static_cast<int>(window_bytes(steps, t));
+  *threads = 32 * (steps == 1 ? kWinWarps : kWarps);
+  *smem_bytes = steps == 1 ? (kWinRows + 2) * (kWinCols + 2) * static_cast<int>(sizeof(float))
+                           : block_bytes<float>();
   return 0;
 }
 

@@ -15,6 +15,7 @@ integer; set it to 0 to start a count).
 from __future__ import annotations
 
 import ctypes
+import functools
 import operator
 from typing import Dict, List, Sequence, Tuple
 
@@ -27,8 +28,10 @@ _DTYPES = {torch.float32: "f32", torch.bfloat16: "bf16"}
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 
 
+@functools.lru_cache(maxsize=None)
 def _symbol(name: str, types: str, nint: int, nfloat: int):
-    """The C entry point ``<name>_<types>`` (``types`` as in ``_DTYPES``)."""
+    """The C entry point ``<name>_<types>`` (``types`` as in ``_DTYPES``),
+    looked up and typed once: every launch pays only the call."""
     fn = getattr(build.load(name), f"{name}_{types}")
     fn.argtypes = [_P, _P] + [_I] * nint + [_F] * nfloat + [_P]
     fn.restype = ctypes.c_int
@@ -90,8 +93,6 @@ def stencil3d(x: torch.Tensor, coeffs: Sequence[float]) -> torch.Tensor:
     if x.device.type == "cpu":
         return stencil3d_ref(x, c)
     D, H, W = x.shape[0] - 2, x.shape[1] - 2, x.shape[2] - 2
-    if (H + 3) // 4 > 65535:
-        raise ValueError(f"stencil3d: H={H} exceeds the kernel's grid")
     out = torch.empty((D, H, W), dtype=x.dtype, device=x.device)
     if out.numel():
         _launch(_symbol("stencil3d", _DTYPES[x.dtype], 3, 4), "stencil3d", x, out,
@@ -107,6 +108,7 @@ def split_steps(steps: int, limit: int) -> List[int]:
     return [steps // n + (1 if p < steps % n else 0) for p in range(n)]
 
 
+@functools.lru_cache(maxsize=None)
 def chain2d_max_steps() -> int:
     """The most sweeps one launch of the CUDA kernel runs.  Builds the
     kernel."""

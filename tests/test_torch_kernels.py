@@ -2,6 +2,7 @@
 the JAX package's Pallas kernels in interpret mode and its oracles, on the
 shapes and tolerances of tests/test_kernels.py."""
 import importlib.util
+import re
 from pathlib import Path
 
 import pytest
@@ -177,21 +178,39 @@ def test_chain2d_rejects_bad_inputs(bad, steps, err, launches):
         ops.chain2d(bad, C2, steps)
 
 
-@pytest.mark.parametrize("steps, parts", [
-    (1, [1]), (16, [16]), (17, [9, 8]), (24, [12, 12]), (40, [14, 13, 13]),
+# The per-launch limit of csrc/chain2d.cu (kMaxSteps): 16 before the
+# wavefront kernel, 12 since.
+@pytest.mark.parametrize("steps, parts, limit", [
+    pytest.param(1, [1], 16, id="1-parts0"),
+    pytest.param(16, [16], 16, id="16-parts1"),
+    pytest.param(17, [9, 8], 16, id="17-parts2"),
+    pytest.param(24, [12, 12], 16, id="24-parts3"),
+    pytest.param(40, [14, 13, 13], 16, id="40-parts4"),
+    pytest.param(12, [12], 12, id="12-limit12"),
+    pytest.param(13, [7, 6], 12, id="13-limit12"),
+    pytest.param(16, [8, 8], 12, id="16-limit12"),
+    pytest.param(24, [12, 12], 12, id="24-limit12"),
+    pytest.param(25, [9, 8, 8], 12, id="25-limit12"),
+    pytest.param(40, [10, 10, 10, 10], 12, id="40-limit12"),
 ])
-def test_chain2d_split_steps(steps, parts):
-    assert ops.split_steps(steps, 16) == parts
+def test_chain2d_split_steps(steps, parts, limit):
+    assert ops.split_steps(steps, limit) == parts
+    assert max(parts) <= limit and sum(parts) == steps
 
 
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_chain2d_passes_through_fp32_equal_one_pass(dtype):
+@pytest.mark.parametrize("dtype, limit", [
+    pytest.param("float32", 16, id="float32"),
+    pytest.param("bfloat16", 16, id="bfloat16"),
+    pytest.param("float32", 12, id="float32-limit12"),
+    pytest.param("bfloat16", 12, id="bfloat16-limit12"),
+])
+def test_chain2d_passes_through_fp32_equal_one_pass(dtype, limit):
     """A chain deeper than one launch runs in passes with fp32 intermediates
     (the CUDA wrapper's split): the result is that of one pass, bit for bit."""
     K, H, W = 20, 9, 13
     _, x, _ = _pair(np.random.RandomState(5).rand(H + 2 * K, W + 2 * K), dtype)
     u = x
-    for k in ops.split_steps(K, 16):
+    for k in ops.split_steps(K, limit):
         u = torch_ref.chain2d_ref(u.float(), C2, k)
     assert torch.equal(u.to(x.dtype), torch_ref.chain2d_ref(x, C2, K))
 
@@ -215,3 +234,48 @@ def test_chain_traffic_model_matches_jax(H, W, K, bm):
     for key in ("unfused_bytes", "fused_bytes", "traffic_reduction"):
         assert port_m[key] == jax_m[key], key
     assert port_m["redundant_compute_frac"] > 0
+
+
+def _chain2d_note():
+    """The tiling table in the note at the head of csrc/chain2d.cu:
+    {K: (TM, S, reads = computed)} for single launches, and the K that the
+    note says run as two launches."""
+    text = (ROOT / "src/repro_torch/kernels/csrc/chain2d.cu").read_text()
+    rows = re.findall(r"^//\s+(\d+)\s+(\d+)\s+(\d+)\s+([\d.]+)\s+[\d.]+$",
+                      text, re.M)
+    two = re.findall(r"^//\s+(\d+)\s+two launches of (\d+)", text, re.M)
+    limit = int(re.search(r"constexpr int kMaxSteps = (\d+);", text).group(1))
+    return ({int(k): (int(tm), int(s), float(r)) for k, tm, s, r in rows},
+            {int(k): int(p) for k, p in two}, limit)
+
+
+@pytest.mark.parametrize("K", [1, 4, 8, 16])
+def test_chain_traffic_model_gives_the_kernel_note(K):
+    """chip_smoke's traffic model, given the wavefront kernel's tiling (TM
+    rows and S columns a warp, a 128-column window), gives the read and
+    compute overhead that the note in csrc/chain2d.cu states; a K beyond one
+    launch runs as the balanced passes the note names, and one sweep as a
+    64 x 128 window read the stated times per output point."""
+    note, two, limit = _chain2d_note()
+    cs = _load("chip_smoke.py", "_chip_smoke")
+    if K == 1:
+        text = (ROOT / "src/repro_torch/kernels/csrc/chain2d.cu").read_text()
+        ratio = float(re.search(r"window read ([\d.]+) times", text).group(1))
+        m = cs.chain_traffic_model(3 * 64, 5 * 128, 1, 64, 128)
+        useful = 3 * 64 * 5 * 128 * 4
+        assert round((m["fused_bytes"] - useful) / useful, 3) == ratio
+        assert m["redundant_compute_frac"] == 0
+        return
+    parts = ops.split_steps(K, limit)
+    if K in two:
+        assert parts == [two[K]] * 2
+    else:
+        assert parts == [K]
+    for k in parts:
+        tm, s, ratio = note[k]
+        assert s == (cs.CHAIN_STRIP - 2 * k) // 8 * 8
+        m = cs.chain_traffic_model(3 * tm, 5 * s, k, tm, s,
+                                   window_cols=cs.CHAIN_STRIP)
+        reads = (m["fused_bytes"] - 3 * tm * 5 * s * 4) / (3 * tm * 5 * s * 4)
+        assert round(reads, 3) == ratio
+        assert round(1 + m["redundant_compute_frac"], 3) == ratio
