@@ -12,10 +12,15 @@ Phases, each of which asserts (any failure exits non-zero):
 2. build — nvcc builds every kernel from ``src/repro_torch/kernels/csrc``;
 3. kernels — each hand-written kernel at the main path's shapes, at the
    reference test shapes and at the edges of its tiling, in fp32 and bf16,
-   held against its plain PyTorch version on the card (fp32 ``torch.equal``,
-   bf16 atol 2e-2) and timed with CUDA events beside its bound, the plain
-   version and a cuDNN convolution computing the same sweep (``stencil3d``
-   in bf16 too, though no path launches it); ``chain2d`` also at the
+   held against its plain PyTorch version on the card (``torch.equal`` in
+   fp32, and for ``stencil2d`` in bf16 too; bf16 atol 2e-2 otherwise) and
+   timed with CUDA events beside its bound, the plain version and a cuDNN
+   convolution computing the same sweep (``stencil3d`` in bf16 too, though
+   no path launches it); ``stencil2d`` also at the edges of the tiling that
+   ``ops.stencil2d_tiling`` reports (widths and heights around one strip
+   and one segment, every row alignment, one-row and one-column interiors,
+   inputs at storage offsets of 1 to 7 elements), and at 16384^2 beside a
+   device-to-device copy of its interior; ``chain2d`` also at the
    reference's chain shapes, ragged ones and every K up to one launch's
    limit, its fp32 result ``torch.equal`` to K launches of ``stencil2d``;
 4. kernel path — the quickstart heat program on ``Session("cuda")`` (2-D,
@@ -101,6 +106,23 @@ SOURCES = {
 }
 
 
+def stencil2d_edge_cases(dtype):
+    """stencil2d checks at the edges of the kernel's tiling for ``dtype``,
+    as (interior, storage offset of the input): widths just below, at and
+    just above one strip and a multiple of it plus one, heights just below
+    and above one segment and past three, W + 2 at every residue mod 8 (so
+    rows start at every alignment), one-row, one-column and 1x1 interiors,
+    and a ragged input at storage offsets 1 to 7.  Builds the kernel."""
+    t = ops.stencil2d_tiling(dtype)
+    rows, cols = t["rows"], t["cols"]
+    shapes = [(13, w) for w in (cols - 1, cols, cols + 1, 4 * cols + 1)]
+    shapes += [(h, 37) for h in (rows - 1, rows + 1, 3 * rows + 1)]
+    shapes += [(5, w) for w in range(6, 14)]
+    shapes += [(1, 300), (300, 1), (1, 1)]
+    return ([(s, 0) for s in shapes]
+            + [((rows + 1, cols + 3), off) for off in range(1, 8)])
+
+
 def chain_edge_shapes(limit: int):
     """chain2d checks at the edges of the kernel's tiling, (interior, steps):
     widths just below, at and just above one strip's output width and a
@@ -183,24 +205,32 @@ def _cross_weight(coeffs, ndim: int, dtype) -> torch.Tensor:
     return w
 
 
-def kernel_case(name: str, shape, dtype, reps: int, seed: int) -> dict:
-    """One kernel at one interior shape: error against the plain version
-    and, with ``reps``, the timings."""
+def kernel_case(name: str, shape, dtype, reps: int, seed: int,
+                offset: int = 0) -> dict:
+    """One kernel at one interior shape, its input ``offset`` elements into
+    its storage: error against the plain version and, with ``reps``, the
+    timings."""
     fn = ops.stencil2d if name == "stencil2d" else ops.stencil3d
     plain = ref.stencil2d_ref if name == "stencil2d" else ref.stencil3d_ref
     coeffs = C2 if name == "stencil2d" else C3
     gen = torch.Generator(device="cuda").manual_seed(seed)
-    x = torch.rand(tuple(s + 2 for s in shape), generator=gen, device="cuda",
-                   dtype=torch.float32).to(dtype)
+    padded = tuple(s + 2 for s in shape)
+    x = torch.rand(offset + int(np.prod(padded)), generator=gen, device="cuda",
+                   dtype=torch.float32).to(dtype)[offset:].view(padded)
     got = fn(x, coeffs)
     want = plain(x, coeffs)
     torch.cuda.synchronize()
     err = (got.float() - want.float()).abs().max().item()
+    # stencil2d rounds once from the plain version's fp32 sums, so it is
+    # exact in bf16 too.
+    exact = dtype == torch.float32 or name == "stencil2d"
     check(got.shape == want.shape and err <= TOL[dtype]
-          and (dtype != torch.float32 or torch.equal(got, want)),
-          f"{name} {shape} {dtype}: max_abs_err {err}")
+          and (not exact or torch.equal(got, want)),
+          f"{name} {shape} {dtype} offset {offset}: max_abs_err {err}")
     rec = {"name": name, "shape": list(shape), "dtype": str(dtype).split(".")[-1],
            "max_abs_err": err}
+    if offset:
+        rec["offset"] = offset
     if not reps:
         return rec
     ndim = len(shape)
@@ -221,6 +251,10 @@ def kernel_case(name: str, shape, dtype, reps: int, seed: int) -> dict:
         bound_ms=max(t_bytes, t_ops),
         bound_by="bytes" if t_bytes >= t_ops else "operations",
         bytes=nbytes, flops=flops)
+    if ndim == 2:
+        # The rate this card reaches on a plain copy of about the same bytes.
+        out = torch.empty(shape, dtype=dtype, device="cuda")
+        rec["copy_ms"] = time_ms(lambda: out.copy_(x[1:-1, 1:-1]), reps)
     return rec
 
 
@@ -263,6 +297,10 @@ def kernels_phase(n2d: int, n3d: int, reps: int) -> dict:
     for i, s in enumerate(SHAPES_2D):
         for dtype in (torch.float32, torch.bfloat16):
             emit(phase="kernel_check", **kernel_case("stencil2d", s, dtype, 0, i))
+    for dtype in (torch.float32, torch.bfloat16):
+        for i, (s, off) in enumerate(stencil2d_edge_cases(dtype)):
+            emit(phase="kernel_check",
+                 **kernel_case("stencil2d", s, dtype, 0, 50 + i, offset=off))
     for i, s in enumerate(SHAPES_3D):
         for dtype in (torch.float32, torch.bfloat16):
             emit(phase="kernel_check", **kernel_case("stencil3d", s, dtype, 0, i))
@@ -418,7 +456,7 @@ def chain_model(H: int, W: int, K: int, dtype_bytes: int) -> dict:
     for k in ops.split_steps(K, ops.chain2d_max_steps()):
         t = ops.chain2d_tiling(k)
         h, w = h - 2 * k, w - 2 * k
-        # One sweep runs as a window kernel, more as a wavefront of strips.
+        # One sweep runs the row march of stencil2d, more a wavefront of strips.
         m = chain_traffic_model(h, w, k, t["rows"], t["cols"], dtype_bytes,
                                 window_cols=CHAIN_STRIP if k > 1 else 0)
         fused += m["fused_bytes"]

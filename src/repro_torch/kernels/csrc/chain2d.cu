@@ -56,14 +56,12 @@
 // order of stencil2d.cu, so the fp32 result is bit-identical to the plain
 // version and to K launches of stencil2d.
 //
-// One sweep (K = 1) has nothing to pipeline, and there the wavefront was
-// slower on the H100 than the earlier design, a 2-D window staged in shared
-// memory and swept there (PERF.md): each half of the work alone, reading the
-// input or writing the output, ran near the card's rate, but mixed row by
-// row in every warp the two overlapped less well than whole-window bursts.
-// So K = 1 runs window_kernel below: a 64 x 128 output tile a block of 16
-// warps, its 66 x 130 window read 1.047 times per output point and nothing
-// swept twice.
+// One sweep (K = 1) has nothing to pipeline.  It runs the one-sweep kernel
+// of stencil2d.cuh, which stencil2d.cu launches too: a 16 x 128 output tile
+// a warp (fp32 input), its 18 x 130 window read 1.143 times per output point
+// (mostly from L2) and nothing swept twice.  On the H100 it is faster than
+// the 2-D window kernel that ran K = 1 before, which was itself faster there
+// than this wavefront at K = 1 (PERF.md).
 //
 // Trade-offs of the strip (kV = 4, 4 warps a block) from
 // chip_smoke.py::chain_traffic_model with a 128-column window: "reads" is
@@ -107,6 +105,7 @@
 #include <cuda_runtime.h>
 
 #include "cp_async.cuh"
+#include "stencil2d.cuh"
 
 namespace {
 
@@ -115,8 +114,6 @@ constexpr int kV = 4;              // columns a lane holds
 constexpr int kStrip = 32 * kV;    // input columns a warp holds
 constexpr int kWarps = 4;          // strips a block
 constexpr int kStages = 8;         // ring rows a warp
-// The one-sweep window kernel: output tile, warps a block, rows an item.
-constexpr int kWinRows = 64, kWinCols = 128, kWinWarps = 16, kBand = 8;
 
 struct Tile {
   int rows, cols;
@@ -127,7 +124,7 @@ struct Tile {
 __host__ __device__ constexpr int strip_cols(int K) { return (kStrip - 2 * K) / 8 * 8; }
 
 Tile tile_for(int K) {
-  if (K == 1) return {kWinRows, kWinCols};
+  if (K == 1) return {sweep2d::seg_rows<float>(), sweep2d::strip_cols<float>()};
   return {K <= 4 ? 64 : K <= 8 ? 256 : 512, strip_cols(K)};
 }
 
@@ -144,19 +141,9 @@ constexpr int block_bytes() {
   return kWarps * (kStages * ring_chunks<T>() * 16 + kStrip * static_cast<int>(sizeof(float)));
 }
 
-__device__ __forceinline__ float load(const float* p) { return __ldg(p); }
-__device__ __forceinline__ float load(const __nv_bfloat16* p) { return __bfloat162float(*p); }
-__device__ __forceinline__ float to_float(float v) { return v; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 v) { return __bfloat162float(v); }
-__device__ __forceinline__ void store(float* p, float v) { *p = v; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float v) { *p = __float2bfloat16(v); }
-
-__device__ __forceinline__ float point(float c0, float cx, float cy, float core,
-                                       float up, float dn, float lf, float rt) {
-  return __fadd_rn(
-      __fadd_rn(__fmul_rn(c0, core), __fmul_rn(cx, __fadd_rn(up, dn))),
-      __fmul_rn(cy, __fadd_rn(lf, rt)));
-}
+using sweep2d::point;
+using sweep2d::store;
+using sweep2d::to_float;
 
 // A block of kWarps warps takes kWarps neighbouring strips of one segment of
 // TM output rows; blockIdx.x = segment * groups + strip group.
@@ -253,66 +240,6 @@ chain2d_kernel(const Tin* __restrict__ x, Tout* __restrict__ out, int H, int W,
   }
 }
 
-// K = 1: one sweep, so nothing to pipeline.  A block of kWinWarps warps
-// stages the (kWinRows+2) x (kWinCols+2) input window of its output tile,
-// converted to fp32, into shared memory (cells beyond the input zero-filled,
-// feeding only masked outputs), then sweeps it once: items of kBand rows by
-// 32 columns dealt out to the warps, each lane walking down its column with
-// the up and centre values in registers.  Staging whole windows mixes the
-// reads with other blocks' writes better than the wavefront does.
-template <typename Tin, typename Tout>
-__global__ void __launch_bounds__(32 * kWinWarps)
-window_kernel(const Tin* __restrict__ x, Tout* __restrict__ out, int H, int W,
-              int tiles_w, float c0, float cx, float cy) {
-  constexpr int R = kWinRows + 2, C = kWinCols + 2, kGroups = (C + 31) / 32;
-  __shared__ float win[R * C];
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int i0 = static_cast<int>(blockIdx.x / tiles_w) * kWinRows;
-  const int j0 = static_cast<int>(blockIdx.x % tiles_w) * kWinCols;
-  const int64_t Wp = static_cast<int64_t>(W) + 2;
-  for (int r = warp; r < R; r += kWinWarps) {
-    float v[kGroups];
-#pragma unroll
-    for (int g = 0; g < kGroups; ++g) {
-      const int c = lane + 32 * g;
-      v[g] = i0 + r < H + 2 && c < C && j0 + c < Wp
-                 ? load(x + (static_cast<int64_t>(i0) + r) * Wp + j0 + c)
-                 : 0.0f;
-    }
-#pragma unroll
-    for (int g = 0; g < kGroups; ++g)
-      if (lane + 32 * g < C) win[r * C + lane + 32 * g] = v[g];
-  }
-  __syncthreads();
-  constexpr int kItems = kWinCols / 32 * (kWinRows / kBand);
-  for (int item = warp; item < kItems; item += kWinWarps) {
-    const int rb = 1 + item / (kWinCols / 32) * kBand;
-    const int c = 1 + item % (kWinCols / 32) * 32 + lane;
-    float up = win[(rb - 1) * C + c], core = win[rb * C + c];
-#pragma unroll
-    for (int r = rb; r < rb + kBand; ++r) {
-      const float dn = win[(r + 1) * C + c];
-      const float v = point(c0, cx, cy, core, up, dn, win[r * C + c - 1], win[r * C + c + 1]);
-      const int oi = i0 + r - 1, oj = j0 + c - 1;
-      if (oi < H && oj < W) store(out + static_cast<int64_t>(oi) * W + oj, v);
-      up = core;
-      core = dn;
-    }
-  }
-}
-
-template <typename Tin, typename Tout>
-int launch_window(const void* x, void* out, int H, int W, float c0, float cx,
-                  float cy, cudaStream_t stream) {
-  const int64_t tiles_w = (static_cast<int64_t>(W) + kWinCols - 1) / kWinCols;
-  const int64_t blocks = tiles_w * ((static_cast<int64_t>(H) + kWinRows - 1) / kWinRows);
-  if (blocks > INT_MAX) return static_cast<int>(cudaErrorInvalidConfiguration);
-  window_kernel<Tin, Tout><<<static_cast<unsigned>(blocks), 32 * kWinWarps, 0, stream>>>(
-      static_cast<const Tin*>(x), static_cast<Tout*>(out), H, W,
-      static_cast<int>(tiles_w), c0, cx, cy);
-  return static_cast<int>(cudaGetLastError());
-}
-
 template <int K, typename Tin, typename Tout>
 int launch_k(const void* x, void* out, int H, int W, float c0, float cx,
              float cy, cudaStream_t stream) {
@@ -335,7 +262,7 @@ int launch(const void* x, void* out, int H, int W, int K, float c0, float cx,
   if (K < 1 || K > kMaxSteps || H < 1 || W < 1)
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (K == 1) return launch_window<Tin, Tout>(x, out, H, W, c0, cx, cy, s);
+  if (K == 1) return sweep2d::launch<Tin, Tout>(x, out, H, W, c0, cx, cy, s);
   int err = static_cast<int>(cudaErrorInvalidValue);
   ((K == Ks + 2 ? (err = launch_k<Ks + 2, Tin, Tout>(x, out, H, W, c0, cx, cy, s))
                 : 0),
@@ -356,18 +283,16 @@ int launch(const void* x, void* out, int H, int W, int K, float c0, float cx,
 extern "C" int chain2d_max_steps() { return kMaxSteps; }
 
 // The tiling one launch of ``steps`` sweeps uses: the output rows and cols a
-// warp owns (a segment of its strip; for one sweep, the block's window
-// tile), threads per block, and shared memory per block in bytes (for an
-// fp32 input).
+// warp owns (a segment of its strip), threads per block, and shared memory
+// per block in bytes (for an fp32 input).
 extern "C" int chain2d_tile(int steps, int* rows, int* cols, int* threads,
                             int* smem_bytes) {
   if (steps < 1 || steps > kMaxSteps) return static_cast<int>(cudaErrorInvalidValue);
   const Tile t = tile_for(steps);
   *rows = t.rows;
   *cols = t.cols;
-  *threads = 32 * (steps == 1 ? kWinWarps : kWarps);
-  *smem_bytes = steps == 1 ? (kWinRows + 2) * (kWinCols + 2) * static_cast<int>(sizeof(float))
-                           : block_bytes<float>();
+  *threads = 32 * (steps == 1 ? sweep2d::kWarps : kWarps);
+  *smem_bytes = steps == 1 ? sweep2d::block_bytes<float>() : block_bytes<float>();
   return 0;
 }
 

@@ -17,7 +17,7 @@ from __future__ import annotations
 import ctypes
 import functools
 import operator
-from typing import Dict, List, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 
@@ -150,19 +150,38 @@ def chain2d(x: torch.Tensor, coeffs: Sequence[float], steps: int) -> torch.Tenso
     return u
 
 
+def _tiling(name: str, arg: int) -> Optional[Dict[str, int]]:
+    """``<name>_tile(arg, &rows, &cols, &threads, &smem_bytes)`` of the
+    kernel ``name`` as a dict, or None if the kernel refuses ``arg``.
+    Builds the kernel."""
+    vals = [ctypes.c_int() for _ in range(4)]
+    fn = getattr(build.load(name), f"{name}_tile")
+    fn.argtypes = [_I] + [ctypes.POINTER(ctypes.c_int)] * 4
+    fn.restype = ctypes.c_int
+    if fn(arg, *(ctypes.byref(v) for v in vals)) != 0:
+        return None
+    return dict(zip(("rows", "cols", "threads", "smem_bytes"),
+                    (v.value for v in vals)))
+
+
 def chain2d_tiling(steps: int) -> Dict[str, int]:
     """The CUDA kernel's tiling for one launch of ``steps`` sweeps (at most
     :func:`chain2d_max_steps`): output tile ``rows`` x ``cols``, ``threads``
     per block, ``smem_bytes`` of shared memory per block.  Builds the
     kernel."""
-    vals = [ctypes.c_int() for _ in range(4)]
-    fn = build.load("chain2d").chain2d_tile
-    fn.argtypes = [_I] + [ctypes.POINTER(ctypes.c_int)] * 4
-    fn.restype = ctypes.c_int
-    if fn(int(steps), *(ctypes.byref(v) for v in vals)) != 0:
+    tiling = _tiling("chain2d", int(steps))
+    if tiling is None:
         raise ValueError(f"chain2d: no single launch runs {steps} sweeps")
-    return dict(zip(("rows", "cols", "threads", "smem_bytes"),
-                    (v.value for v in vals)))
+    return tiling
+
+
+def stencil2d_tiling(dtype: torch.dtype = torch.float32) -> Dict[str, int]:
+    """The CUDA kernel's tiling for an input of ``dtype``: the output
+    ``rows`` and ``cols`` a warp owns, ``threads`` per block and
+    ``smem_bytes`` of shared memory per block.  Builds the kernel."""
+    if dtype not in _DTYPES:
+        raise TypeError(f"stencil2d: dtype {dtype} not supported (float32, bfloat16)")
+    return _tiling("stencil2d", torch.empty((), dtype=dtype).element_size())
 
 
 stencil2d.launches = 0

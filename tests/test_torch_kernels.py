@@ -70,6 +70,31 @@ def test_stencil2d_matches_jax(shape, dtype, launches):
                                atol=tol)
 
 
+# The edges of csrc/stencil2d.cu's tiling: 1-row, 1-column and 1x1
+# interiors; widths one below, at and one above a strip of 128 (fp32) and
+# 256 (bf16) columns; W + 2 at every residue mod 8, so that rows start at
+# every alignment; and heights around an 8-, a 16- and a 64-row segment.
+STENCIL2D_EDGES = ([(1, 300), (300, 1), (1, 1)]
+                   + [(3, w) for w in (127, 128, 129, 255, 256, 257)]
+                   + [(5, w) for w in range(6, 14)]
+                   + [(h, 5) for h in (7, 9, 15, 17, 63, 65)])
+
+
+@pytest.mark.parametrize("shape", STENCIL2D_EDGES)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_stencil2d_edges_match_jax(shape, dtype, launches):
+    H, W = shape
+    rng = np.random.RandomState(H * 1000 + W + 1)
+    xj, xt, tol = _pair(rng.rand(H + 2, W + 2), dtype)
+    got = ops.stencil2d(xt, C2)
+    assert got.shape == (H, W) and got.dtype == xt.dtype
+    got = got.float().numpy()
+    np.testing.assert_allclose(got, np.asarray(jax_stencil2d(xj, C2), np.float32),
+                               atol=tol)
+    np.testing.assert_allclose(got, np.asarray(jax_ref2d(xj, C2), np.float32),
+                               atol=tol)
+
+
 @pytest.mark.parametrize("shape", [(4, 8, 8), (9, 17, 21), (16, 32, 32)])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_stencil3d_matches_jax(shape, dtype, launches):
@@ -254,15 +279,22 @@ def test_chain_traffic_model_gives_the_kernel_note(K):
     """chip_smoke's traffic model, given the wavefront kernel's tiling (TM
     rows and S columns a warp, a 128-column window), gives the read and
     compute overhead that the note in csrc/chain2d.cu states; a K beyond one
-    launch runs as the balanced passes the note names, and one sweep as a
-    64 x 128 window read the stated times per output point."""
+    launch runs as the balanced passes the note names, and one sweep as the
+    output tile of csrc/stencil2d.cuh, its window read the stated times per
+    output point."""
     note, two, limit = _chain2d_note()
     cs = _load("chip_smoke.py", "_chip_smoke")
     if K == 1:
         text = (ROOT / "src/repro_torch/kernels/csrc/chain2d.cu").read_text()
-        ratio = float(re.search(r"window read ([\d.]+) times", text).group(1))
-        m = cs.chain_traffic_model(3 * 64, 5 * 128, 1, 64, 128)
-        useful = 3 * 64 * 5 * 128 * 4
+        tm, tn, ratio = re.search(
+            r"(\d+) x (\d+) output tile\s+// a warp \(fp32 input\), its \d+ x \d+ "
+            r"window read ([\d.]+) times", text).groups()
+        tm, tn, ratio = int(tm), int(tn), float(ratio)
+        sweep = (ROOT / "src/repro_torch/kernels/csrc/stencil2d.cuh").read_text()
+        points = int(re.search(r"constexpr int kPoints = (\d+);", sweep).group(1))
+        assert tn == 32 * 4 and tm == points // tn
+        m = cs.chain_traffic_model(3 * tm, 5 * tn, 1, tm, tn)
+        useful = 3 * tm * 5 * tn * 4
         assert round((m["fused_bytes"] - useful) / useful, 3) == ratio
         assert m["redundant_compute_frac"] == 0
         return
