@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py            # the full run, on one CUDA card
     python3 chip_smoke.py --small    # a short first run after a kernel edit
+                                     # (every phase, the apps included, small)
     python3 chip_smoke.py --profile  # only the out-of-core path, traced and
                                      # profiled: where its wall time goes
 
@@ -43,16 +44,28 @@ Phases, each of which asserts (any failure exits non-zero):
    ``"ooc-async"`` (bit-identical to ``ooc``), then on ``"cuda"`` (fields
    atol 1e-5, reductions rtol 1e-3).  Peak device memory must stay below the
    homes' size.  Then one- and two-slot pools, whose slots are reused at
-   once, at a quarter of the size, against ``"cuda"``.
+   once, at a quarter of the size, against ``"cuda"``;
+7. apps path — the paper's applications from ``repro_torch.apps`` at a third
+   of their homes: CloverLeaf 2D at an 8192^2 interior (25 homes, 6.72 GB,
+   pinned; capacity 2.24 GB; 4 steps, a field summary every 2) on ``ooc``,
+   ``ooc-async`` (bit-identical to ``ooc``), ``resident`` (the in-core
+   baseline) and ``reference``, all on the card, with one record per
+   Session chain (tiles, splits, wall, plan seconds, cache hits), the lanes'
+   bytes and rates, peak device memory (below the homes) and the paper's
+   resident-over-out-of-core ratio of wall per step; then CloverLeaf 3D and
+   OpenSBLI (two timesteps a chain) at 256^3, 2 steps on ``ooc`` against
+   ``reference``.  Fields rtol 1e-4 / atol 1e-5, summaries rtol 1e-3.
 
 Every line but the last two is a JSON record.  The line before the last
-JSON ``ok`` line lists every ported kernel; the card's ``nvidia-smi`` name
-and power limit are printed on their own line before it.  The script
+JSON ``ok`` line lists every ported kernel (phase 7 launches none of them:
+the apps' loops are torch ops); the card's ``nvidia-smi`` name and power
+limit are printed on their own line before it.  The script
 imports nothing of JAX or of the JAX package.
 """
 from __future__ import annotations
 
 import argparse
+import gc
 import json
 import statistics
 import subprocess
@@ -172,9 +185,11 @@ def device_phase() -> str:
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
+    meminfo = dict(ln.split(":", 1) for ln in Path("/proc/meminfo").read_text().splitlines())
     emit(phase="device", name=torch.cuda.get_device_name(0),
          count=torch.cuda.device_count(), nvidia_smi=smi,
-         torch=torch.__version__, cuda=torch.version.cuda)
+         torch=torch.__version__, cuda=torch.version.cuda,
+         host_mem_available=meminfo["MemAvailable"].strip())
     return smi
 
 
@@ -591,6 +606,238 @@ def slot_pool_phase(n: int, steps: int) -> None:
                  interior=[n, n], max_abs_err_vs_cuda=err, wall_s=walls)
 
 
+# -- phase 7: the apps path -----------------------------------------------------
+
+
+APP_FIELDS = {"cloverleaf2d": ("density0", "energy0", "xvel0", "yvel0"),
+              "cloverleaf3d": ("density0", "energy0", "xvel0", "yvel0", "zvel0"),
+              "opensbli": ("rho", "rhou", "rhov", "rhow", "rhoE")}
+
+
+def run_app(name: str, make_app, backend: str, steps: int, **kw) -> dict:
+    """One app run on the card: fresh homes (pinned before the run, as in
+    phase 6), peak device memory from a reset, and one record per chain the
+    Session flushed — its loops, the executor chains it became (more than
+    one where it split), its wall to a synchronise, its plan seconds and
+    cache hits.  The Session is closed and the homes are dropped before this
+    returns, so their pins are released; the fields come back as copies."""
+    app = make_app()
+    for d in app.dats.values():
+        d.pin()
+    sess = Session(backend, **kw)
+    chains = []
+    run_chain = sess._run
+
+    def timed(chain):
+        before = len(sess.history)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run_chain(chain)
+        torch.cuda.synchronize()
+        hist = sess.history[before:]
+        chains.append({
+            "loops": len(chain), "first": chain[0].name, "last": chain[-1].name,
+            "wall_s": time.perf_counter() - t0,
+            "tiles": [h.num_tiles for h in hist],
+            "plan_s": sum(h.plan_s for h in hist),
+            "cache_hits": sum(h.plan_cache_hit for h in hist),
+            "loop_bytes": sum(h.loop_bytes for h in hist)})
+
+    sess._run = timed
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    summary = app.run(sess, steps=steps)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() - base
+    sess.close()
+    out = {"backend": backend, "summary": summary, "wall_s": wall,
+           "chains": chains, "peak_device_bytes": peak,
+           "home_bytes": app.total_bytes(),
+           "transfer": sess.transfer_stats(),
+           "fields": {n: app.d(n).interior().copy() for n in APP_FIELDS[name]}}
+    del app, sess
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def app_check(name: str, got: dict, want: dict, what: str) -> float:
+    """Fields rtol 1e-4 / atol 1e-5 and summaries rtol 1e-3, the reference
+    package's own tolerances (tests/test_apps.py)."""
+    err = 0.0
+    for n in APP_FIELDS[name]:
+        err = max(err, compare(got["fields"][n], want["fields"][n], rtol=1e-4, atol=1e-5))
+    for k, v in want["summary"].items():
+        check(np.isfinite(got["summary"][k]) and np.isclose(got["summary"][k], v, rtol=1e-3),
+              f"{name} {what}: summary {k} {got['summary'][k]} vs {v}")
+    return err
+
+
+def chain_groups(chains) -> dict:
+    """Chains by their loop names at both ends and their length (what a
+    plan signature shares, less the kernels' captured constants): every
+    flush's wall, plan seconds and whether its plan came from the cache."""
+    groups = {}
+    for c in chains:
+        key = f"{c['first']}..{c['last']} ({c['loops']} loops)"
+        g = groups.setdefault(key, {"wall_s": [], "plan_s": [], "cache_hits": [],
+                                    "tiles": []})
+        for k in g:
+            g[k].append(c[k])
+    return groups
+
+
+def lane_record(run: dict) -> dict:
+    st = run["transfer"]
+    busy = {lane: st["lanes"].get(lane, {}).get("service", {}).get("sum", 0.0)
+            for lane in ("up", "down")}
+    copy_s = st["copy_s"]
+    return {
+        "bytes_up": st["bytes_up_raw"], "bytes_down": st["bytes_down_raw"],
+        "lane_busy_s": busy, "lane_copy_s": copy_s,
+        "h2d_GBps_copy": st["bytes_up_raw"] / copy_s["up"] / 1e9 if copy_s["up"] else None,
+        "d2h_GBps_copy": st["bytes_down_raw"] / copy_s["down"] / 1e9 if copy_s["down"] else None,
+        "h2d_GBps_busy": st["bytes_up_raw"] / busy["up"] / 1e9 if busy["up"] else None,
+        "d2h_GBps_busy": st["bytes_down_raw"] / busy["down"] / 1e9 if busy["down"] else None,
+    }
+
+
+def step_walls(run: dict) -> dict:
+    """Wall per step after the init chain, with and without the host
+    planner's seconds, and the paper's achieved bandwidth (useful loop
+    bytes over wall) where the backend reports loop bytes."""
+    chains = run["chains"][1:]
+    wall = sum(c["wall_s"] for c in chains)
+    plan = sum(c["plan_s"] for c in chains)
+    loop_bytes = sum(c["loop_bytes"] for c in chains)
+    return {"wall_s": wall, "plan_s": plan,
+            "useful_GBps": loop_bytes / wall / 1e9 if loop_bytes else None,
+            "useful_GBps_without_plan": (loop_bytes / (wall - plan) / 1e9
+                                         if loop_bytes else None)}
+
+
+def kernel_ops_per_timestep(n: int = 64) -> dict:
+    """The device operations CloverLeaf 2D's loop kernels issue in one
+    timestep (51 loops), each kernel called once over its whole range on
+    the card: eager torch runs each non-view operation as at least one
+    launch, so an out-of-core chain of T tiles issues about T times this.
+    The count does not depend on the grid's size."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    from repro_torch.apps import CloverLeaf2D
+    from repro_torch.core.reference import _TensorAccessor
+
+    class Count(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.ops = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            self.ops += not func.is_view
+            return func(*args, **(kwargs or {}))
+
+    app = CloverLeaf2D(n, n, summary_every=0)
+    sess = Session("reference")
+    app.record_init(sess)
+    sess.flush()
+    app.record_timestep(sess)
+    device = sess.backend.device
+    arrays = {name: torch.from_numpy(d.to_numpy()).to(device)
+              for name, d in app.dats.items()}
+    with Count() as c:
+        for lp in sess.queue:
+            lp.kernel(_TensorAccessor(lp, arrays, device))
+    return {"loops": len(sess.queue), "kernel_ops": c.ops}
+
+
+def apps_phase(n2d: int, n3d: int, steps2d: int = 4, steps3d: int = 2) -> None:
+    """The paper's three applications on the port, out of core at a third
+    of their homes.  CloverLeaf 2D at an n2d^2 interior runs ``steps2d``
+    steps (a field summary every 2) on ``ooc``, ``ooc-async``, ``resident``
+    (the in-core baseline) and ``reference``, all on the card; CloverLeaf 3D
+    and OpenSBLI (two timesteps a chain) at n3d^3 run ``steps3d`` steps on
+    ``ooc`` against ``reference``."""
+    from repro_torch.apps import CloverLeaf2D, CloverLeaf3D, OpenSBLI
+
+    def cl2d():
+        return CloverLeaf2D(n2d, n2d, summary_every=2)
+
+    homes = 25 * (n2d + 4) ** 2 * 4
+    cap = homes / 3
+    runs = {}
+    for backend, kw in (("ooc", dict(hw="p100-pcie", capacity_bytes=cap, prefetch=True)),
+                        ("ooc-async", dict(hw="p100-pcie", capacity_bytes=cap,
+                                           prefetch=True)),
+                        ("resident", dict(hw="p100-pcie")),
+                        ("reference", {})):
+        run = runs[backend] = run_app("cloverleaf2d", cl2d, backend, steps2d, **kw)
+        check(run["home_bytes"] == homes, f"homes {run['home_bytes']} B")
+        rec = {"phase": "apps", "app": "cloverleaf2d", "backend": backend,
+               "interior": [n2d, n2d], "steps": steps2d, "home_bytes": homes,
+               "wall_s": run["wall_s"], "peak_device_bytes": run["peak_device_bytes"],
+               "summary": run["summary"]}
+        if backend != "reference":
+            chains = run["chains"]
+            rec.update(
+                capacity_bytes=cap if backend.startswith("ooc") else None,
+                peak_over_capacity=(run["peak_device_bytes"] / cap
+                                    if backend.startswith("ooc") else None),
+                chains=len(chains),
+                executor_chains=sum(len(c["tiles"]) for c in chains),
+                chains_split=sum(len(c["tiles"]) > 1 for c in chains),
+                tiles_per_chain=[c["tiles"] for c in chains],
+                plan_s=sum(c["plan_s"] for c in chains),
+                by_signature=chain_groups(chains),
+                steps_after_init=step_walls(run),
+                **lane_record(run))
+        emit(**rec)
+    ooc, asy, res, ref_ = (runs[b] for b in ("ooc", "ooc-async", "resident", "reference"))
+    for run in (ooc, asy):
+        check(all(t > 1 for c in run["chains"] for t in c["tiles"]), "ran out of core")
+        check(run["peak_device_bytes"] < homes,
+              f"peak {run['peak_device_bytes']} B not below the homes {homes} B")
+    check(all(torch.equal(torch.from_numpy(ooc["fields"][n]),
+                          torch.from_numpy(asy["fields"][n]))
+              for n in APP_FIELDS["cloverleaf2d"]) and ooc["summary"] == asy["summary"],
+          "cloverleaf2d: ooc-async is bit-identical to ooc")
+    err = app_check("cloverleaf2d", ooc, ref_, "ooc vs reference")
+    err_res = app_check("cloverleaf2d", res, ref_, "resident vs reference")
+    per_step = {b: step_walls(runs[b])["wall_s"] / steps2d
+                for b in ("ooc", "ooc-async", "resident")}
+    no_plan = {b: (step_walls(runs[b])["wall_s"] - step_walls(runs[b])["plan_s"]) / steps2d
+               for b in ("ooc", "ooc-async", "resident")}
+    emit(phase="apps_check", app="cloverleaf2d", ooc_async_bit_identical=True,
+         max_abs_err_ooc_vs_reference=err, max_abs_err_resident_vs_reference=err_res,
+         wall_per_step_s=per_step, wall_per_step_without_plan_s=no_plan,
+         resident_over_ooc=per_step["resident"] / per_step["ooc"],
+         resident_over_ooc_async=per_step["resident"] / per_step["ooc-async"],
+         resident_over_ooc_without_plan=no_plan["resident"] / no_plan["ooc"],
+         resident_over_ooc_async_without_plan=no_plan["resident"] / no_plan["ooc-async"])
+    del runs, ooc, asy, res, ref_
+    emit(phase="apps_ops", app="cloverleaf2d", **kernel_ops_per_timestep())
+    for name, make in (("cloverleaf3d",
+                        lambda: CloverLeaf3D(n3d, n3d, n3d, summary_every=steps3d)),
+                       ("opensbli", lambda: OpenSBLI(n3d, chain_steps=2))):
+        homes3 = len(make().dats) * (n3d + 4) ** 3 * 4
+        got = run_app(name, make, "ooc", steps3d, hw="p100-pcie",
+                      capacity_bytes=homes3 / 3, prefetch=True)
+        want = run_app(name, make, "reference", steps3d)
+        err = app_check(name, got, want, "ooc vs reference")
+        check(got["peak_device_bytes"] < homes3,
+              f"{name}: peak {got['peak_device_bytes']} B not below the homes {homes3} B")
+        emit(phase="apps", app=name, backend="ooc", interior=[n3d] * 3, steps=steps3d,
+             home_bytes=homes3, capacity_bytes=homes3 / 3, wall_s=got["wall_s"],
+             reference_wall_s=want["wall_s"], max_abs_err_vs_reference=err,
+             peak_device_bytes=got["peak_device_bytes"],
+             tiles_per_chain=[c["tiles"] for c in got["chains"]],
+             plan_s=sum(c["plan_s"] for c in got["chains"]),
+             by_signature=chain_groups(got["chains"]), summary=got["summary"],
+             **lane_record(got))
+
+
 def profile_phase(n: int, steps: int) -> None:
     """The out-of-core path once more per backend, with the span tracer on
     and torch.profiler around the replayed round's flush: host time by plan
@@ -654,10 +901,11 @@ def main() -> int:
         print("chip_smoke: no CUDA device; this script runs only on a GPU",
               file=sys.stderr)
         return 1
-    n2d, n3d, nooc, reps = (16384, 512, 24576, 20)
+    n2d, n3d, nooc, reps, napp2, napp3 = (16384, 512, 24576, 20, 8192, 256)
     if args.small:
-        n2d, n3d, nooc, reps = (1024, 64, 2048, 5)
-        emit(cut="--small", kernel_2d=n2d, kernel_3d=n3d, ooc=nooc, reps=reps)
+        n2d, n3d, nooc, reps, napp2, napp3 = (1024, 64, 2048, 5, 512, 32)
+        emit(cut="--small", kernel_2d=n2d, kernel_3d=n3d, ooc=nooc, reps=reps,
+             app_2d=napp2, app_3d=napp3)
     smi = device_phase()
     if args.profile:
         profile_phase(nooc, steps=4)
@@ -672,6 +920,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     ooc_phase(nooc, steps=4)
     slot_pool_phase(nooc // 4, steps=4)
+    torch.cuda.empty_cache()
+    apps_phase(napp2, napp3)
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": SOURCES[name][0],
          "replaces": SOURCES[name][1], "launches": launches[name],

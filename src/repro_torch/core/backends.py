@@ -11,7 +11,8 @@ flag), and ``plan_hits``/``plan_misses``/``plan_time_s``.
 Built-ins:
 
 ==============  ===============================================================
-``reference``   eager oracle on the CPU, program order, no tiling (tests)
+``reference``   eager oracle on the session's device, program order, no
+                tiling (tests)
 ``resident``    paper baseline: everything in fast memory, raises beyond it
 ``ooc``         3-slot out-of-core streaming executor (Algorithm 1)
 ``ooc-async``   ``ooc`` with the threaded transfer engine: staging on
@@ -78,13 +79,15 @@ def make_backend(config):
 
 
 class ReferenceBackend:
-    """Eager oracle on the CPU."""
+    """Eager oracle, program order, on ``device`` (homes copied up whole
+    per chain on a CUDA device; the homes themselves on the CPU)."""
 
-    def __init__(self):
+    def __init__(self, device="cuda"):
+        self.device = resolve_device(device)
         self.history: List = []
 
     def run_chain(self, loops: Sequence[ParallelLoop]):
-        return run_chain_reference(loops)
+        return run_chain_reference(loops, self.device)
 
 
 def kernel_eligible(lp: ParallelLoop, op) -> bool:
@@ -161,7 +164,7 @@ class KernelBackend:
 
 @register_backend("reference")
 def _reference(config):
-    return ReferenceBackend()
+    return ReferenceBackend(device=config.device)
 
 
 @register_backend("cuda")

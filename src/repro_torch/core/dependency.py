@@ -21,7 +21,9 @@ the inline proof in :mod:`repro_torch.core.tiling`.
 Ported from ``src/repro/core/dependency.py``: the plan-cache fingerprint
 content-hashes captured ``torch.Tensor``s (where the reference hashes jax
 arrays), so a kernel whose captured tensor changed is re-planned instead of
-replaying a stale plan.
+replaying a stale plan.  :func:`split_chain` is the one MemoryError split
+policy of the executor and the planner preview; unlike the reference's, it
+keeps the whole chain's read-first datasets live in both halves.
 """
 from __future__ import annotations
 
@@ -169,6 +171,48 @@ def analyze_chain(loops: Sequence[ParallelLoop], tiled_dim: int = 0) -> ChainInf
         cold=cold,
         loop_extents=loop_extents,
     )
+
+
+def read_first(loops: Sequence[ParallelLoop]) -> frozenset:
+    """Datasets whose first access in ``loops`` (program order, argument
+    order) reads — the complement of ``ChainInfo.write_first``."""
+    first: Dict[str, bool] = {}
+    for lp in loops:
+        for a in lp.args:
+            first.setdefault(a.dat.name, a.mode.reads)
+    return frozenset(n for n, reads in first.items() if reads)
+
+
+def split_chain(loops: Sequence[ParallelLoop], keep_live: frozenset,
+                warm: frozenset):
+    """The MemoryError split of a chain that no tile count fits: halves
+    ``(head, head_keep_live, head_warm)`` and ``(tail, ...)``.
+
+    ``OutOfCoreExecutor.run_chain`` runs the halves and
+    ``Session._plan_split`` plans them; both call this, so they cannot
+    drift apart.
+
+    * The head keeps live whatever the tail reads: a write-first dataset of
+      the head is no dead temporary if the tail consumes it.
+    * The tail warm-stages whatever the head wrote: the head's downloads
+      landed real data that the tail's write-first upload elision would let
+      its download clobber.
+    * Both halves keep live every dataset the *whole* chain reads before it
+      writes.  Such a dataset carries state into the next chain; a half that
+      happens to write it first would otherwise treat it as a dead
+      temporary under Cyclic and elide its download (the heat program's
+      ``u``, CloverLeaf's velocities).  The reference package's split lacks
+      this rule, so split Cyclic plans differ from its plans on purpose;
+      chains that fit unsplit plan byte-equal to the reference's.
+    """
+    mid = len(loops) // 2
+    head, tail = loops[:mid], loops[mid:]
+    live = keep_live | read_first(loops)
+    tail_reads = frozenset(
+        a.dat.name for lp in tail for a in lp.args if a.mode.reads)
+    head_writes = frozenset(
+        a.dat.name for lp in head for a in lp.args if a.mode.writes)
+    return (head, live | tail_reads, warm), (tail, live, warm | head_writes)
 
 
 def chain_signature(info: ChainInfo) -> Tuple:

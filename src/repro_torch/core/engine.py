@@ -52,7 +52,7 @@ class _SliceAccessor(Accessor):
 
     def __init__(self, loop: ParallelLoop, box_sizes, td: int, start_td: int,
                  origins: Dict[str, int], slots: Dict[str, torch.Tensor],
-                 halos: Dict[str, Tuple[int, ...]]):
+                 halos: Dict[str, Tuple[int, ...]], device: torch.device):
         self._loop = loop
         self._sizes = tuple(box_sizes)
         self.shape = tuple(box_sizes)
@@ -61,12 +61,13 @@ class _SliceAccessor(Accessor):
         self._origins = origins            # per-dat slot origin
         self._slots = slots
         self._halos = halos                # per-dat halo_lo tuple
+        self.device = device
 
     def coords(self):
         """Global grid coordinates over the box, broadcast to full box shape."""
         lp = self._loop
         nd = lp.block.ndim
-        device = next(iter(self._slots.values())).device
+        device = self.device
         out = []
         for d in range(nd):
             start = self._start_td if d == self._td else lp.range_[d][0]
@@ -115,13 +116,15 @@ class TileEngine:
         chain, td, halos = self.chain, self.td, self.halos
         reds: Dict[str, torch.Tensor] = {}
         storages = {a.untyped_storage().data_ptr() for a in slots.values()}
+        device = next(iter(slots.values())).device
         for k, lp in enumerate(chain.loops):
             box = tile.loop_ranges[k]
             if box is None:
                 continue
             sizes = tuple(b - a for a, b in box)
             start = box[td][0]
-            acc = _SliceAccessor(lp, sizes, td, start, origins, slots, halos)
+            acc = _SliceAccessor(lp, sizes, td, start, origins, slots, halos,
+                                device)
             out = lp.kernel(acc)
             if not isinstance(out, dict):
                 raise TypeError(f"kernel of {lp.name!r} must return a dict")

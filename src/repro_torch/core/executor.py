@@ -44,7 +44,13 @@ from typing import Dict, List, Optional, Sequence, Set, Tuple, Union
 import numpy as np
 import torch
 
-from .dependency import ChainInfo, analyze_chain, chain_signature, plan_signature
+from .dependency import (
+    ChainInfo,
+    analyze_chain,
+    chain_signature,
+    plan_signature,
+    split_chain,
+)
 from .device import resolve_device
 from .engine import TileEngine
 from .interp import DataPlaneInterpreter, LedgerInterpreter, SpecState
@@ -321,31 +327,25 @@ class OutOfCoreExecutor:
         instead of the freshly-planned one; its signature hash must match
         the chain's.
 
-        Splitting breaks the §4.1 Cyclic contract: a write-first dat of the
-        first half is no longer a dead temporary if the second half reads it,
-        so its download cannot be elided — ``keep_live`` carries the dats the
-        remainder of the original chain still consumes."""
+        Splitting breaks the §4.1 Cyclic contract, so the halves carry
+        ``keep_live``/``warm`` sets from :func:`~repro_torch.core.dependency.
+        split_chain` (shared with ``Session._plan_split``).  That policy also
+        keeps the whole chain's read-first datasets live in both halves,
+        which the reference package's split does not: a split Cyclic chain
+        plans differently from the reference's (and returns the reference
+        backend's result where the reference package's loses data)."""
         try:
             return self._interpret_chain(loops, keep_live, plan, warm)
         except MemoryError:
             if len(loops) <= 1 or plan is not None:
                 raise
-            mid = len(loops) // 2
-            head, tail = loops[:mid], loops[mid:]
-            tail_reads = frozenset(
-                a.dat.name for lp in tail for a in lp.args if a.mode.reads)
-            # The tail must warm-stage anything the head wrote — the head's
-            # downloads landed real data its write-first elision would let
-            # the tail clobber.  This split policy is mirrored in
-            # Session._plan_split; the two must stay in lock-step.
-            head_writes = frozenset(
-                a.dat.name for lp in head for a in lp.args if a.mode.writes)
-            out = self.run_chain(head, keep_live | tail_reads, warm=warm)
+            (head, h_live, h_warm), (tail, t_live, t_warm) = split_chain(
+                loops, keep_live, warm)
+            out = self.run_chain(head, h_live, warm=h_warm)
             # Both halves may contribute to the same reduction: combine, not
             # overwrite.
             specs = {r.name: r for lp in loops for r in lp.reductions}
-            for name, val in self.run_chain(tail, keep_live,
-                                            warm=warm | head_writes).items():
+            for name, val in self.run_chain(tail, t_live, warm=t_warm).items():
                 out[name] = (np.asarray(specs[name].combine(out[name], val))
                              if name in out else val)
             return out

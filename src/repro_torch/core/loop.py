@@ -77,9 +77,13 @@ class Accessor:
     the (static) iteration-box shape; ``acc.coords()`` returns per-dimension
     global grid coordinates over the box (OPS's ``ops_arg_idx``) — kernels
     that need spatial position MUST use it so they stay correct under tiling.
+    ``acc.device`` is the ``torch.device`` the accessor's tensors live on: a
+    kernel that makes a fresh tensor (``torch.ones(acc.shape, ...)``) makes
+    it there, or the engine would copy it from the host on every tile.
     """
 
     shape: Tuple[int, ...] = ()
+    device = None   # torch.device, set by every concrete accessor
 
     def __call__(self, name: str, offset: Tuple[int, ...] = None):  # pragma: no cover
         raise NotImplementedError

@@ -44,7 +44,7 @@ import torch
 from .backends import make_backend
 from .block import Block
 from .dataset import Dataset, torch_dtype
-from .dependency import kernel_fingerprint
+from .dependency import kernel_fingerprint, split_chain
 from .loop import AccessMode, Accessor, Arg, Kernel, ParallelLoop, ReductionSpec
 from .device import resolve_device
 from .memory import P100_PCIE, PRESETS, HardwareModel
@@ -166,6 +166,7 @@ class _TracingAccessor(Accessor):
         self._range = range_
         self._dats = dats
         self.shape = tuple(min(b - a, 3) for a, b in range_)
+        self.device = torch.device("cpu")
         self.reads: Dict[str, Set[Tuple[int, ...]]] = {}
 
     def coords(self):
@@ -608,22 +609,20 @@ class Session:
 
     def _plan_split(self, ex, loops, keep_live, warm=frozenset()):
         """Mirror ``run_chain``'s MemoryError chain splitting, plans only.
-        The split policy must stay in lock-step with
-        ``OutOfCoreExecutor.run_chain``."""
+        Both take their halves from :func:`~repro_torch.core.dependency.
+        split_chain`, which keeps the whole chain's read-first datasets live
+        in both halves; the reference package's split does not, so split
+        Cyclic plans differ from its plans on purpose (unsplit chains plan
+        byte-equal)."""
         try:
             return [ex.plan_chain(loops, keep_live, warm=warm).ir]
         except MemoryError:
             if len(loops) <= 1:
                 raise
-            mid = len(loops) // 2
-            head, tail = loops[:mid], loops[mid:]
-            tail_reads = frozenset(
-                a.dat.name for lp in tail for a in lp.args if a.mode.reads)
-            head_writes = frozenset(
-                a.dat.name for lp in head for a in lp.args if a.mode.writes)
-            return (self._plan_split(ex, head, keep_live | tail_reads, warm)
-                    + self._plan_split(ex, tail, keep_live,
-                                       warm | head_writes))
+            (head, h_live, h_warm), (tail, t_live, t_warm) = split_chain(
+                loops, keep_live, warm)
+            return (self._plan_split(ex, head, h_live, h_warm)
+                    + self._plan_split(ex, tail, t_live, t_warm))
 
     def verify(self, loops=None):
         """Static plan verification: ``core/verify.py`` is not ported yet."""

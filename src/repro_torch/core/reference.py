@@ -1,33 +1,44 @@
 """Reference executor: direct, eager, no tiling, no staging.
 
 Ported from ``src/repro/core/reference.py``.  The oracle every other
-execution strategy is validated against: loops run in program order on the
-CPU, reads and writes hit the home arrays directly.  The accessor hands
-kernels torch CPU tensors that are views of the homes.
+execution strategy is validated against: loops run in program order, and
+their reads and writes hit whole padded arrays.  On the CPU those arrays are
+the homes themselves (the accessor hands kernels views of them).  On a CUDA
+device a chain first copies every dataset it touches up whole, runs there,
+and copies the datasets it wrote back home at its end — so the oracle of a
+CUDA session runs on the card, not on a hidden host path.
 """
 from __future__ import annotations
 
-from typing import Dict, Sequence, Tuple
+from typing import Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
-from .dataset import torch_dtype
+from .dataset import Dataset, torch_dtype
 from .loop import AccessMode, Accessor, ParallelLoop
 
 
+def _whole(dat: Dataset) -> Tuple[slice, ...]:
+    return (slice(None),) * dat.ndim
+
+
 class _TensorAccessor(Accessor):
-    def __init__(self, loop: ParallelLoop):
+    def __init__(self, loop: ParallelLoop, arrays: Dict[str, torch.Tensor],
+                 device: torch.device):
         self._loop = loop
         self._dats = {a.dat.name: a.dat for a in loop.args}
+        self._arrays = arrays
         self.shape = tuple(b - a for a, b in loop.range_)
+        self.device = device
 
     def coords(self):
         lp = self._loop
         nd = lp.block.ndim
         out = []
         for d in range(nd):
-            ar = torch.arange(lp.range_[d][0], lp.range_[d][1], dtype=torch.int32)
+            ar = torch.arange(lp.range_[d][0], lp.range_[d][1], dtype=torch.int32,
+                              device=self.device)
             shape = [1] * nd
             shape[d] = ar.numel()
             out.append(ar.reshape(shape).expand(self.shape))
@@ -44,12 +55,20 @@ class _TensorAccessor(Accessor):
                   lp.range_[d][1] + offset[d] + dat.halo[d][0])
             for d in range(nd)
         )
-        return dat.region_tensor(idx)
+        return self._arrays[name][idx]
 
 
-def run_loop_reference(lp: ParallelLoop) -> Dict[str, np.ndarray]:
-    """Execute one loop eagerly; returns reduction results (if any)."""
-    acc = _TensorAccessor(lp)
+def run_loop_reference(lp: ParallelLoop,
+                       arrays: Optional[Dict[str, torch.Tensor]] = None
+                       ) -> Dict[str, np.ndarray]:
+    """Execute one loop eagerly over ``arrays`` (whole padded tensors by
+    dataset name, all on one device; default: the home tensors); returns
+    reduction results (if any) as NumPy."""
+    if arrays is None:
+        arrays = {a.dat.name: a.dat.region_tensor(_whole(a.dat)) for a in lp.args}
+    device = (next(iter(arrays.values())).device if arrays
+              else torch.device("cpu"))
+    acc = _TensorAccessor(lp, arrays, device)
     out = lp.kernel(acc)
     writes = {}
     for arg in lp.args:
@@ -57,8 +76,8 @@ def run_loop_reference(lp: ParallelLoop) -> Dict[str, np.ndarray]:
             continue
         # Copy: kernels may return views of the very arrays we are about to
         # mutate (e.g. pure copy loops) — overlapping-view assignment corrupts.
-        vals = torch.as_tensor(out[arg.dat.name],
-                               dtype=torch_dtype(arg.dat.dtype)).clone()
+        vals = torch.as_tensor(out[arg.dat.name], dtype=torch_dtype(arg.dat.dtype),
+                               device=device).clone()
         writes[arg.dat.name] = (arg, vals)
     # Two-phase commit so RW loops read pre-loop values (parallel semantics).
     for name, (arg, vals) in writes.items():
@@ -67,13 +86,14 @@ def run_loop_reference(lp: ParallelLoop) -> Dict[str, np.ndarray]:
             slice(lp.range_[d][0] + dat.halo[d][0], lp.range_[d][1] + dat.halo[d][0])
             for d in range(lp.block.ndim)
         )
+        view = arrays[name][idx]
         if arg.mode is AccessMode.INC:
-            dat.region_tensor(idx).add_(vals)
+            view.add_(vals)
         else:
-            dat.write_region(idx, vals)
+            view.copy_(vals)
     reds = {}
     for rspec in lp.reductions:
-        reds[rspec.name] = np.asarray(torch.as_tensor(out[rspec.name]))
+        reds[rspec.name] = np.asarray(torch.as_tensor(out[rspec.name]).cpu())
     return reds
 
 
@@ -89,9 +109,24 @@ def merge_loop_reductions(
             merged[name] = val
 
 
-def run_chain_reference(loops: Sequence[ParallelLoop]) -> Dict[str, np.ndarray]:
-    """Execute a chain eagerly in program order; merge reductions."""
+def run_chain_reference(loops: Sequence[ParallelLoop],
+                        device: torch.device = torch.device("cpu")
+                        ) -> Dict[str, np.ndarray]:
+    """Execute a chain eagerly in program order on ``device``; merge
+    reductions.  Off the CPU, every dataset the chain touches is copied up
+    whole first and every dataset it wrote is copied home at the end."""
     merged: Dict[str, np.ndarray] = {}
+    if device.type == "cpu":
+        for lp in loops:
+            merge_loop_reductions(merged, lp, run_loop_reference(lp))
+        return merged
+    dats = {a.dat.name: a.dat for lp in loops for a in lp.args}
+    arrays = {n: d.region_tensor(_whole(d)).to(device) for n, d in dats.items()}
+    written = set()
     for lp in loops:
-        merge_loop_reductions(merged, lp, run_loop_reference(lp))
+        merge_loop_reductions(merged, lp, run_loop_reference(
+            lp, {a.dat.name: arrays[a.dat.name] for a in lp.args}))
+        written.update(a.dat.name for a in lp.args if a.mode.writes)
+    for name in written:
+        dats[name].write_region(_whole(dats[name]), arrays[name])
     return merged

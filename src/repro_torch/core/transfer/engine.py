@@ -19,7 +19,9 @@ executor folds into :class:`~repro_torch.core.executor.ChainStats` and benchmark
 report as the ``transfer`` section.
 
 Copied from ``src/repro/core/transfer/engine.py`` with its imports rewired to
-``repro_torch``; it imports neither JAX nor ``repro``.
+``repro_torch``; it imports neither JAX nor ``repro``.  One change: a worker
+drops its finished task before it waits for the next (the reference's worker
+keeps the last one, and so the last chain's device slots, alive).
 """
 from __future__ import annotations
 
@@ -146,6 +148,11 @@ class TransferEngine:
                 return
             handle, fn, deps = item
             self._run(handle, fn, deps)
+            # Drop the finished task before waiting for the next: its closure
+            # holds the chain's interpreter, and with it that chain's device
+            # slots, which would otherwise stay allocated beside the next
+            # chain's until another task arrived.
+            del item, handle, fn, deps
 
     def _run(self, handle: TransferHandle, fn, deps) -> None:
         try:

@@ -1,5 +1,6 @@
-"""The port stands alone: ``repro_torch`` and ``chip_smoke.py`` import neither
-JAX nor the JAX package, and its entry points refuse to fall back to the CPU."""
+"""The port stands alone: ``repro_torch`` (its apps included) and
+``chip_smoke.py`` import neither JAX nor the JAX package, and its entry points
+refuse to fall back to the CPU."""
 import ast
 import os
 import subprocess
@@ -20,7 +21,7 @@ sys.modules["jax"] = None
 sys.modules["repro"] = None
 sys.path.insert(0, {src!r})
 sys.path.insert(0, {root!r})
-import repro_torch, repro_torch.core, repro_torch.kernels, repro_torch.obs
+import repro_torch, repro_torch.apps, repro_torch.core, repro_torch.kernels, repro_torch.obs
 import chip_smoke
 from repro_torch.core import Session
 s = Session("ooc", device="cpu", num_tiles=2, capacity_bytes=float("inf"))

@@ -229,3 +229,62 @@ def test_captured_tensor_content_changes_the_plan_key():
 def test_unported_features_raise(call, err):
     with pytest.raises(err, match="ROADMAP|port"):
         call()
+
+
+# -- a chain that no tile count fits splits; Cyclic must keep its state --------
+
+SPLIT_N, SPLIT_M = 64, 40
+SPLIT_PROBLEM = 2 * (SPLIT_N + 2) * (SPLIT_M + 2) * 4
+
+
+@pytest.fixture(scope="module")
+def split_runs():
+    homes = _jax_homes((SPLIT_N, SPLIT_M), seed=13)
+    runs = {"reference": _run("torch", "reference", homes)}
+    for prefetch in (False, True):
+        runs[prefetch] = _run("torch", "ooc", homes, hw="p100-pcie",
+                              capacity_bytes=SPLIT_PROBLEM / 4, cyclic=True,
+                              prefetch=prefetch)
+    return runs
+
+
+@pytest.mark.parametrize("prefetch", [False, True])
+def test_split_cyclic_heat_equals_reference(prefetch, split_runs):
+    """At a quarter capacity the heat chain splits in two.  ``u`` is read
+    first by the whole chain but written first by the tail, so the tail
+    must not treat it as a dead Cyclic temporary (it came back 0.242 off
+    before the split kept read-first datasets live)."""
+    got, want = split_runs[prefetch], split_runs["reference"]
+    assert len(got[2].history) == 2 and got[2].chains_flushed == 1
+    np.testing.assert_array_equal(got[0], want[0])
+    np.testing.assert_allclose(got[1], want[1], **RED)
+
+
+def test_split_plan_preview_matches_the_run_and_keeps_u_live(split_runs):
+    sess, plan_json = split_runs[True][2], split_runs[True][3]
+    plans = T.plans_from_json(plan_json)
+    assert [p.num_tiles for p in plans] == [h.num_tiles for h in sess.history]
+    assert all("u" in p.keep_live for p in plans)
+
+
+def test_threaded_lanes_release_the_finished_chain():
+    """A lane worker waiting for its next task must not keep the last
+    chain's interpreter (and so its device slots) alive: on the card that
+    doubled the slot memory of ``ooc-async`` between chains."""
+    import gc
+
+    from repro_torch.core.interp import DataPlaneInterpreter
+
+    blk = T.Block("g", (32, 16))
+    u = T.make_dataset(blk, "u", halo=1, init=np.ones((32, 16), np.float32))
+    t = T.make_dataset(blk, "tmp", halo=1)
+    sess = T.Session("ooc-async", device="cpu", num_tiles=4,
+                     capacity_bytes=float("inf"))
+    sess.par_loop("copy", blk, ((0, 32), (0, 16)), [u, t],
+                  lambda acc: {"tmp": acc("u")})
+    sess.flush()
+    gc.collect()
+    assert not [o for o in gc.get_objects()
+                if isinstance(o, DataPlaneInterpreter) and o.info.datasets.get("u") is u]
+    assert np.array_equal(sess.fetch(t), np.ones((32, 16), np.float32))
+    sess.close()
