@@ -6,6 +6,8 @@
                                      # (every phase, the apps included, small)
     python3 chip_smoke.py --profile  # only the out-of-core path, traced and
                                      # profiled: where its wall time goes
+    python3 chip_smoke.py --disk     # only phase 8 and the CloverLeaf 2D runs
+                                     # of phase 7 it is held against
 
 Phases, each of which asserts (any failure exits non-zero):
 
@@ -54,11 +56,25 @@ Phases, each of which asserts (any failure exits non-zero):
    bytes and rates, peak device memory (below the homes) and the paper's
    resident-over-out-of-core ratio of wall per step; then CloverLeaf 3D and
    OpenSBLI (two timesteps a chain) at 256^3, 2 steps on ``ooc`` against
-   ``reference``.  Fields rtol 1e-4 / atol 1e-5, summaries rtol 1e-3.
+   ``reference``.  Fields rtol 1e-4 / atol 1e-5, summaries rtol 1e-3;
+8. disk tier — CloverLeaf 2D at phase 7's size with its homes on disk,
+   under ``build/spill/`` (deleted at the end; the phase first checks the
+   free space and fails if it is short): ``mmap`` homes on ``ooc`` with the
+   host budget at a third of the homes, so the plans carry FetchHome and
+   SpillHome for the disk lane, and ``debug=True``, so every plan is
+   verified before it runs; checkpointed at step 2 and resumed in a new app
+   and Session; then ``chunked`` homes (lossless ``shuffle-rle``).  Fields
+   bit-identical to phase 7's RAM-home ``ooc`` run (every home's digest,
+   where the tile counts match; else rtol 1e-4 / atol 1e-5 of
+   ``reference``), the resume bit-identical to the uninterrupted run.
+   Records: wall per step (planning, verify, the rest), disk bytes, home
+   fetches and spills, the disk lane's busy seconds, H2D/D2H GB/s beside
+   phase 7's pinned RAM homes, peak device memory, checkpoint and restore
+   seconds, the spill directory's free bytes.
 
 Every line but the last two is a JSON record.  The line before the last
-JSON ``ok`` line lists every ported kernel (phase 7 launches none of them:
-the apps' loops are torch ops); the card's ``nvidia-smi`` name and power
+JSON ``ok`` line lists every ported kernel (phases 7 and 8 launch none of
+them: the apps' loops are torch ops); the card's ``nvidia-smi`` name and power
 limit are printed on their own line before it.  The script
 imports nothing of JAX or of the JAX package.
 """
@@ -66,7 +82,11 @@ from __future__ import annotations
 
 import argparse
 import gc
+import hashlib
 import json
+import os
+import shutil
+import tempfile
 import statistics
 import subprocess
 import sys
@@ -614,13 +634,17 @@ APP_FIELDS = {"cloverleaf2d": ("density0", "energy0", "xvel0", "yvel0"),
               "opensbli": ("rho", "rhou", "rhov", "rhow", "rhoE")}
 
 
-def run_app(name: str, make_app, backend: str, steps: int, **kw) -> dict:
-    """One app run on the card: fresh homes (pinned before the run, as in
-    phase 6), peak device memory from a reset, and one record per chain the
-    Session flushed — its loops, the executor chains it became (more than
-    one where it split), its wall to a synchronise, its plan seconds and
-    cache hits.  The Session is closed and the homes are dropped before this
-    returns, so their pins are released; the fields come back as copies."""
+def run_app(name: str, make_app, backend: str, steps: int, drive=None,
+            digests: bool = False, **kw) -> dict:
+    """One app run on the card: fresh homes (RAM homes pinned before the
+    run, as in phase 6; disk-backed homes are never pinned), peak device
+    memory from a reset, and one record per chain the Session flushed — its
+    loops, the executor chains it became (more than one where it split), its
+    wall to a synchronise, its plan and ``debug`` verify seconds and cache
+    hits.  ``drive(app, sess) -> summary`` replaces ``app.run(sess, steps)``.
+    The Session is closed and the homes are dropped before this returns, so
+    their pins are released; the fields come back as copies, and with
+    ``digests`` every dataset's whole padded home as a SHA-1 digest."""
     app = make_app()
     for d in app.dats.values():
         d.pin()
@@ -640,6 +664,7 @@ def run_app(name: str, make_app, backend: str, steps: int, **kw) -> dict:
             "wall_s": time.perf_counter() - t0,
             "tiles": [h.num_tiles for h in hist],
             "plan_s": sum(h.plan_s for h in hist),
+            "verify_s": sum(h.verify_s for h in hist),
             "cache_hits": sum(h.plan_cache_hit for h in hist),
             "loop_bytes": sum(h.loop_bytes for h in hist)})
 
@@ -648,7 +673,8 @@ def run_app(name: str, make_app, backend: str, steps: int, **kw) -> dict:
     torch.cuda.reset_peak_memory_stats()
     base = torch.cuda.memory_allocated()
     t0 = time.perf_counter()
-    summary = app.run(sess, steps=steps)
+    summary = (drive(app, sess) if drive is not None
+               else app.run(sess, steps=steps))
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated() - base
@@ -656,8 +682,12 @@ def run_app(name: str, make_app, backend: str, steps: int, **kw) -> dict:
     out = {"backend": backend, "summary": summary, "wall_s": wall,
            "chains": chains, "peak_device_bytes": peak,
            "home_bytes": app.total_bytes(),
+           "stores": sorted({d.store.kind for d in app.dats.values()}),
            "transfer": sess.transfer_stats(),
            "fields": {n: app.d(n).interior().copy() for n in APP_FIELDS[name]}}
+    if digests:
+        out["digests"] = {n: hashlib.sha1(memoryview(np.ascontiguousarray(
+            d.materialize()))).hexdigest() for n, d in app.dats.items()}
     del app, sess
     gc.collect()
     torch.cuda.empty_cache()
@@ -705,15 +735,17 @@ def lane_record(run: dict) -> dict:
     }
 
 
-def step_walls(run: dict) -> dict:
-    """Wall per step after the init chain, with and without the host
-    planner's seconds, and the paper's achieved bandwidth (useful loop
-    bytes over wall) where the backend reports loop bytes."""
-    chains = run["chains"][1:]
+def step_walls(run: dict, skip: int = 1) -> dict:
+    """Wall of the steps (every chain after the first ``skip``: 1 passes
+    over ``app.run``'s init chain, 0 takes a resumed run whole), with and
+    without the host planner's seconds, and the paper's achieved bandwidth
+    (useful loop bytes over wall) where the backend reports loop bytes."""
+    chains = run["chains"][skip:]
     wall = sum(c["wall_s"] for c in chains)
     plan = sum(c["plan_s"] for c in chains)
     loop_bytes = sum(c["loop_bytes"] for c in chains)
     return {"wall_s": wall, "plan_s": plan,
+            "verify_s": sum(c["verify_s"] for c in chains),
             "useful_GBps": loop_bytes / wall / 1e9 if loop_bytes else None,
             "useful_GBps_without_plan": (loop_bytes / (wall - plan) / 1e9
                                          if loop_bytes else None)}
@@ -753,13 +785,14 @@ def kernel_ops_per_timestep(n: int = 64) -> dict:
     return {"loops": len(sess.queue), "kernel_ops": c.ops}
 
 
-def apps_phase(n2d: int, n3d: int, steps2d: int = 4, steps3d: int = 2) -> None:
+def apps_phase(n2d: int, n3d: int, steps2d: int = 4, steps3d: int = 2) -> dict:
     """The paper's three applications on the port, out of core at a third
     of their homes.  CloverLeaf 2D at an n2d^2 interior runs ``steps2d``
     steps (a field summary every 2) on ``ooc``, ``ooc-async``, ``resident``
     (the in-core baseline) and ``reference``, all on the card; CloverLeaf 3D
     and OpenSBLI (two timesteps a chain) at n3d^3 run ``steps3d`` steps on
-    ``ooc`` against ``reference``."""
+    ``ooc`` against ``reference``.  Returns CloverLeaf 2D's ``ooc`` run (with
+    its homes' digests) and ``reference`` run, phase 8's baselines."""
     from repro_torch.apps import CloverLeaf2D, CloverLeaf3D, OpenSBLI
 
     def cl2d():
@@ -768,7 +801,8 @@ def apps_phase(n2d: int, n3d: int, steps2d: int = 4, steps3d: int = 2) -> None:
     homes = 25 * (n2d + 4) ** 2 * 4
     cap = homes / 3
     runs = {}
-    for backend, kw in (("ooc", dict(hw="p100-pcie", capacity_bytes=cap, prefetch=True)),
+    for backend, kw in (("ooc", dict(hw="p100-pcie", capacity_bytes=cap, prefetch=True,
+                                     digests=True)),
                         ("ooc-async", dict(hw="p100-pcie", capacity_bytes=cap,
                                            prefetch=True)),
                         ("resident", dict(hw="p100-pcie")),
@@ -816,6 +850,7 @@ def apps_phase(n2d: int, n3d: int, steps2d: int = 4, steps3d: int = 2) -> None:
          resident_over_ooc_async=per_step["resident"] / per_step["ooc-async"],
          resident_over_ooc_without_plan=no_plan["resident"] / no_plan["ooc"],
          resident_over_ooc_async_without_plan=no_plan["resident"] / no_plan["ooc-async"])
+    baseline = {"ooc": ooc, "reference": ref_}
     del runs, ooc, asy, res, ref_
     emit(phase="apps_ops", app="cloverleaf2d", **kernel_ops_per_timestep())
     for name, make in (("cloverleaf3d",
@@ -836,6 +871,159 @@ def apps_phase(n2d: int, n3d: int, steps2d: int = 4, steps3d: int = 2) -> None:
              plan_s=sum(c["plan_s"] for c in got["chains"]),
              by_signature=chain_groups(got["chains"]), summary=got["summary"],
              **lane_record(got))
+    return baseline
+
+
+# -- phase 8: the disk tier -------------------------------------------------------
+
+# Where phase 8's disk-backed homes and its checkpoint go: a directory of the
+# checkout that git ignores, made afresh under it and deleted at the end.
+SPILL_ROOT = Path(__file__).resolve().parent / "build" / "spill"
+
+
+def cl2d_baselines(n: int, steps: int = 4) -> dict:
+    """Phase 7's CloverLeaf 2D ``ooc`` (RAM homes, with digests) and
+    ``reference`` runs, for running phase 8 alone."""
+    from repro_torch.apps import CloverLeaf2D
+
+    homes = 25 * (n + 4) ** 2 * 4
+    make = lambda: CloverLeaf2D(n, n, summary_every=2)  # noqa: E731
+    out = {"ooc": run_app("cloverleaf2d", make, "ooc", steps, digests=True,
+                          hw="p100-pcie", capacity_bytes=homes / 3, prefetch=True),
+           "reference": run_app("cloverleaf2d", make, "reference", steps)}
+    emit(phase="disk_baseline", interior=[n, n], steps=steps,
+         ooc_wall_s=out["ooc"]["wall_s"], reference_wall_s=out["reference"]["wall_s"])
+    return out
+
+
+def disk_record(run: dict, skip: int = 1) -> dict:
+    """Phase 8's per-run record: wall of the steps (``step_walls``'s
+    ``skip``) split into planning, ``debug`` verification and the rest;
+    the disk tier's traffic and lane; the upload/download lanes; peak
+    device memory."""
+    st = run["transfer"]
+    walls = step_walls(run, skip)
+    disk = st["lanes"].get("disk", {}).get("service", {})
+    return {"wall_s": run["wall_s"], "steps_after_init": walls,
+            "rest_s": walls["wall_s"] - walls["plan_s"] - walls["verify_s"],
+            "tiles_per_chain": [c["tiles"] for c in run["chains"]],
+            "disk_bytes_read": st["bytes_disk_read"],
+            "disk_bytes_written": st["bytes_disk_written"],
+            "home_fetches": st["home_fetches"], "home_spills": st["home_spills"],
+            "disk_lane_busy_s": disk.get("sum", 0.0),
+            "disk_lane_tasks": disk.get("count", 0),
+            "peak_device_bytes": run["peak_device_bytes"],
+            "summary": run["summary"], **lane_record(run)}
+
+
+def disk_phase(n: int, baseline: dict, steps: int = 4) -> None:
+    """CloverLeaf 2D at an n^2 interior with its homes on disk: ``mmap``
+    homes at phase 7's capacity with the host budget at a third of the
+    homes (so plans carry FetchHome/SpillHome) and ``debug`` verification
+    of every plan, checkpointed at step 2 and resumed in a new app and
+    Session; then ``chunked`` homes (the lossless default codec).  Each is
+    held against phase 7's RAM-home ``ooc`` run (``baseline``; bit for bit
+    where the tile counts match) and the resume against the uninterrupted
+    run, bit for bit."""
+    from repro_torch.apps import CloverLeaf2D
+    from repro_torch.core import StoreConfig
+
+    t_phase = time.perf_counter()
+    homes = 25 * (n + 4) ** 2 * 4
+    SPILL_ROOT.mkdir(parents=True, exist_ok=True)
+    free = shutil.disk_usage(SPILL_ROOT).free
+    # At most two of the mmap homes, the checkpoint and the resumed mmap
+    # homes exist at once; the chunked files (at most the homes' size with
+    # the lossless codec on smooth fields) come after them.
+    need = 3 * homes
+    emit(phase="disk_space", spill_root=str(SPILL_ROOT), free_bytes=free,
+         needed_bytes=need)
+    check(free >= need, f"the spill directory {SPILL_ROOT} has {free} bytes free; "
+          f"phase 8 needs {need} for the homes, the checkpoint and the chunked files")
+    spill = Path(tempfile.mkdtemp(prefix="phase8-", dir=SPILL_ROOT))
+    kw = dict(hw="p100-pcie", capacity_bytes=homes / 3, prefetch=True,
+              host_capacity=homes / 3, debug=True)
+    try:
+        ckpt = str(spill / "step2.npz")
+        state = {}
+
+        def with_checkpoint(app, sess):
+            out = app.run(sess, steps=2)
+            t0 = time.perf_counter()
+            state["manifest"] = sess.checkpoint(ckpt)
+            state["checkpoint_s"] = time.perf_counter() - t0
+            state["scalars"] = (app.dt, app.step_count)
+            out.update(app.run_steps(sess, 2, steps))
+            return out
+
+        def resumed(app, sess):
+            t0 = time.perf_counter()
+            sess.restore(ckpt, datasets=app.dats.values())
+            state["restore_s"] = time.perf_counter() - t0
+            app.dt, app.step_count = state["scalars"]
+            sess.cyclic = True
+            return app.run_steps(sess, 2, steps)
+
+        def cl2d(kind, tag):
+            return lambda: CloverLeaf2D(n, n, summary_every=2, store=StoreConfig(
+                kind=kind, directory=str(spill / tag)))
+
+        mm = run_app("cloverleaf2d", cl2d("mmap", "mmap"), "ooc", steps,
+                     drive=with_checkpoint, digests=True, **kw)
+        shutil.rmtree(spill / "mmap")
+        check(mm["home_bytes"] == homes, f"homes {mm['home_bytes']} B")
+        check(mm["stores"] == ["mmap"], f"the mmap run's homes were {mm['stores']}")
+        check(mm["transfer"]["home_fetches"] > 0 and mm["transfer"]["home_spills"] > 0,
+              "the mmap run's plans carry FetchHome and SpillHome")
+        check(mm["peak_device_bytes"] < homes,
+              f"mmap: peak {mm['peak_device_bytes']} B not below the homes {homes} B")
+        ooc = baseline["ooc"]
+        tiles_match = ([c["tiles"] for c in mm["chains"]]
+                       == [c["tiles"] for c in ooc["chains"]])
+        if tiles_match:
+            check(all(np.array_equal(mm["fields"][f], ooc["fields"][f])
+                      for f in APP_FIELDS["cloverleaf2d"])
+                  and mm["digests"] == ooc["digests"],
+                  "mmap homes: fields bit-identical to phase 7's RAM-home ooc run")
+            err = 0.0
+        else:
+            err = app_check("cloverleaf2d", mm, baseline["reference"], "mmap vs reference")
+        for k, v in ooc["summary"].items():
+            check(np.isclose(mm["summary"][k], v, rtol=1e-3),
+                  f"mmap summary {k} {mm['summary'][k]} vs {v}")
+        emit(phase="disk", store="mmap", interior=[n, n], steps=steps,
+             home_bytes=homes, capacity_bytes=homes / 3, host_capacity=homes / 3,
+             debug=True, tiles_match_phase7=tiles_match,
+             bit_identical_to_phase7=tiles_match, max_abs_err_vs_reference=err,
+             checkpoint_s=state["checkpoint_s"],
+             checkpoint_bytes=os.path.getsize(ckpt),
+             phase7_ram_lanes=lane_record(ooc), **disk_record(mm))
+
+        res = run_app("cloverleaf2d", cl2d("mmap", "resumed"), "ooc", steps,
+                      drive=resumed, digests=True, **kw)
+        check(res["digests"] == mm["digests"] and res["summary"] == mm["summary"],
+              "the resumed mmap run is bit-identical to the uninterrupted one")
+        emit(phase="disk_resume", store="mmap", interior=[n, n], resumed_at_step=2,
+             restore_s=state["restore_s"], bit_identical=True,
+             datasets_compared=len(res["digests"]), **disk_record(res, skip=0))
+        shutil.rmtree(spill / "resumed")
+        os.remove(ckpt)
+
+        ch = run_app("cloverleaf2d", cl2d("chunked", "chunked"), "ooc", steps,
+                     digests=True, **kw)
+        check(ch["stores"] == ["chunked"], f"the chunked run's homes were {ch['stores']}")
+        on_disk = sum(f.stat().st_size for f in (spill / "chunked").rglob("*") if f.is_file())
+        check([c["tiles"] for c in ch["chains"]] == [c["tiles"] for c in ooc["chains"]]
+              and ch["digests"] == ooc["digests"] and ch["summary"] == ooc["summary"],
+              "chunked homes: bit-identical to phase 7's RAM-home ooc run")
+        emit(phase="disk", store="chunked", codec="shuffle-rle",
+             interior=[n, n], steps=steps, home_bytes=homes,
+             capacity_bytes=homes / 3, host_capacity=homes / 3, debug=True,
+             bit_identical_to_ram_ooc=True, chunk_files_bytes=on_disk,
+             **disk_record(ch))
+        emit(phase="disk_done", seconds=time.perf_counter() - t_phase)
+    finally:
+        shutil.rmtree(spill, ignore_errors=True)
 
 
 def profile_phase(n: int, steps: int) -> None:
@@ -896,6 +1084,8 @@ def main() -> int:
                     help="cut every size (a short first run after a kernel edit)")
     ap.add_argument("--profile", action="store_true",
                     help="only profile the out-of-core path (no result line)")
+    ap.add_argument("--disk", action="store_true",
+                    help="only phase 8 and its phase 7 baselines (no result line)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on a GPU",
@@ -910,6 +1100,9 @@ def main() -> int:
     if args.profile:
         profile_phase(nooc, steps=4)
         return 0
+    if args.disk:
+        disk_phase(napp2, cl2d_baselines(napp2))
+        return 0
     build_phase()
     path = kernels_phase(n2d, n3d, reps)
     launches = kernel_path_phase(n2d, n3d)
@@ -921,7 +1114,9 @@ def main() -> int:
     ooc_phase(nooc, steps=4)
     slot_pool_phase(nooc // 4, steps=4)
     torch.cuda.empty_cache()
-    apps_phase(napp2, napp3)
+    baseline = apps_phase(napp2, napp3)
+    disk_phase(napp2, baseline)
+    del baseline
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": SOURCES[name][0],
          "replaces": SOURCES[name][1], "launches": launches[name],

@@ -44,8 +44,8 @@ class CloverLeaf2D:
     ny: int
     dtype: type = np.float32
     summary_every: int = 10
-    # Home-copy tier for every dataset: None/"ram" (default); what
-    # repro_torch.core.make_store accepts (the disk tiers are ROADMAP A8).
+    # Home-copy tier for every dataset: None/"ram" (default), "mmap",
+    # "chunked", or a repro_torch.core.StoreConfig (see repro_torch.core.store).
     store: object = None
     # Device mesh for make_session(): sharded execution is ROADMAP A10 of
     # the port, so anything but None raises there.
@@ -457,8 +457,17 @@ class CloverLeaf2D:
         self.record_init(rt)
         rt.flush()
         rt.cyclic = True  # paper §4.1: set after the initialisation phase
+        return self.run_steps(rt, 0, steps, dt_every)
+
+    def run_steps(self, rt: Session, first: int, last: int,
+                  dt_every: bool = True) -> Dict[str, float]:
+        """Timesteps ``first`` .. ``last - 1`` of :meth:`run` (no init), with
+        its breakers and summaries.  A run restored from a checkpoint taken
+        after ``first`` timesteps (``Session.restore``, with ``dt``/``step_count``
+        and ``rt.cyclic`` set back) continues with this exactly as the
+        uninterrupted run does."""
         out: Dict[str, float] = {}
-        for s in range(steps):
+        for s in range(first, last):
             self._ideal_gas(rt, "density0", "energy0", "_dt")
             self._viscosity(rt)
             self._calc_dt(rt)

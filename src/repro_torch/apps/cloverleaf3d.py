@@ -37,8 +37,8 @@ class CloverLeaf3D:
     nz: int
     dtype: type = np.float32
     summary_every: int = 10
-    # Home-copy tier: None/"ram"; what repro_torch.core.make_store accepts
-    # (the disk tiers are ROADMAP A8).
+    # Home-copy tier for every dataset: None/"ram" (default), "mmap",
+    # "chunked", or a repro_torch.core.StoreConfig (see repro_torch.core.store).
     store: object = None
     # Device mesh for make_session(): sharded execution is ROADMAP A10 of
     # the port, so anything but None raises there.

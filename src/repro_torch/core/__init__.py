@@ -52,7 +52,28 @@ from .plan import (
     plans_from_json,
     plans_to_json,
 )
-from .store import BackingStore, RamStore, StoreError, make_store
+from .verify import (
+    Diagnostic,
+    PlanVerificationError,
+    VerifyResult,
+    verify_plan,
+    verify_plans,
+)
+from .fuzz import Mutation, check_mutations, enumerate_mutations
+from .store import (
+    BackingStore,
+    ChunkedStore,
+    MmapStore,
+    RamStore,
+    StoreConfig,
+    StoreError,
+    available_stores,
+    load_checkpoint,
+    make_store,
+    register_store,
+    save_checkpoint,
+)
+from .tune import TuneResult, tune_configs
 from .program import (
     ExecutionConfig,
     Session,
@@ -120,7 +141,11 @@ __all__ = [
     "SpillHome", "HaloPack", "HaloExchange", "HaloUnpack", "build_plan",
     "format_plan", "plans_to_json", "plans_from_json",
     "DeviceMesh", "HaloSpec", "MeshError", "ShardGeometry", "parse_mesh",
-    "BackingStore", "RamStore", "StoreError", "make_store",
+    "Diagnostic", "VerifyResult", "PlanVerificationError", "verify_plan",
+    "verify_plans", "Mutation", "enumerate_mutations", "check_mutations",
+    "BackingStore", "RamStore", "MmapStore", "ChunkedStore", "StoreConfig",
+    "StoreError", "make_store", "register_store", "available_stores",
+    "save_checkpoint", "load_checkpoint",
     "LedgerInterpreter", "DataPlaneInterpreter", "InterpResult", "SpecState",
-    "simulate_plan",
+    "simulate_plan", "TuneResult", "tune_configs",
 ]

@@ -2,13 +2,17 @@
 
 Ported from ``src/repro/core/dataset.py``.  A dataset lives in *slow memory*
 as its home location; the out-of-core executor stages footprints of it into
-*fast memory* (device slots) per tile.  The home is a
-:class:`~repro_torch.core.store.RamStore`: a host tensor with a shared NumPy
-view.  The NumPy forms (``read``/``write``/``read_rows``/``write_rows``) serve
-the planner, the reference oracle and ``fetch``; the tensor forms
-(``rows_tensor``/``box_tensor``, and ``write``/``write_rows`` given a tensor)
-let the data plane copy between a pinned home and CUDA slots without going
-through NumPy.
+*fast memory* (device slots) per tile.  The home is a pluggable
+:class:`~repro_torch.core.store.BackingStore`: a host tensor with a shared
+NumPy view (``ram``, the default), an ``np.memmap`` over a spill directory
+(``mmap``), or codec-compressed chunks on disk behind an LRU cache
+(``chunked``).  The NumPy forms (``read``/``write``/``read_rows``/
+``write_rows``) serve the planner, the reference oracle and ``fetch``; the
+tensor forms (``rows_tensor``/``region_tensor``/``box_tensor``, and
+``write``/``write_rows`` given a tensor) let the data plane copy between a
+home and CUDA slots without going through NumPy.  The tensor forms are live
+views of ``ram`` and ``mmap`` homes (``store.tensor_views``) and fresh
+copies of rows read through the cache of ``chunked`` ones.
 
 :func:`datasets_from_numpy` and :meth:`Dataset.to_numpy` carry state across
 from and back to the JAX package's padded home arrays.
@@ -21,7 +25,7 @@ import numpy as np
 import torch
 
 from .block import Block
-from .store import BackingStore, RamStore, make_store
+from .store import BackingStore, RamStore, StoreConfig, make_store
 
 Halo = Union[int, Tuple[Tuple[int, int], ...]]
 
@@ -46,7 +50,7 @@ class Dataset:
     def __init__(self, block: Block, name: str, dtype,
                  halo: Tuple[Tuple[int, int], ...],
                  data: Optional[np.ndarray] = None, version: int = 0,
-                 store: Union[None, str, BackingStore] = None):
+                 store: Union[None, str, StoreConfig, BackingStore] = None):
         self.block = block
         self.name = name
         self.dtype = np.dtype(dtype)
@@ -67,6 +71,15 @@ class Dataset:
         self._store = make_store(store, name=name, shape=shape,
                                  dtype=self.dtype, data=data)
 
+    @classmethod
+    def from_store(cls, block: Block, name: str, store: BackingStore,
+                   halo: Halo = 1, dtype=None) -> "Dataset":
+        """Wrap an existing backing store (e.g. a reopened ``MmapStore``) as
+        a dataset; shape/dtype are validated against block + halo."""
+        return cls(block=block, name=name,
+                   dtype=store.dtype if dtype is None else dtype,
+                   halo=_halo_pairs(halo, block.ndim), store=store)
+
     def __repr__(self) -> str:
         return (f"Dataset(name={self.name!r}, block={self.block.name!r}, "
                 f"dtype={self.dtype.str}, halo={self.halo}, "
@@ -79,11 +92,12 @@ class Dataset:
 
     @property
     def data(self) -> np.ndarray:
-        """The live home array (a NumPy view of the home tensor)."""
+        """The live home array (``ram``/``mmap``); raises for ``chunked``."""
         return self._store.as_array()
 
     def materialize(self) -> np.ndarray:
-        """The whole padded array (a live view)."""
+        """The whole padded array — a live view for RAM-resident stores, a
+        fresh assembly for ``chunked`` (checkpointing / ``fetch_raw``)."""
         return self._store.materialize()
 
     def to_numpy(self) -> np.ndarray:
@@ -92,10 +106,16 @@ class Dataset:
         return np.array(self._store.materialize(), copy=True)
 
     def pin(self) -> None:
-        """Move the home into page-locked host memory (CUDA sessions do this
-        for every home they stage; idempotent)."""
+        """Move a ``ram`` home into page-locked host memory (CUDA sessions do
+        this for every RAM home they stage; idempotent).  A disk-backed home
+        is never pinned: that would copy all of it into RAM and defeat the
+        tier; the data plane stages its rows through pinned buffers."""
         if isinstance(self._store, RamStore):
             self._store.pin()
+
+    def flush_store(self) -> int:
+        """Persist dirty home state to disk; returns disk bytes written."""
+        return self._store.flush()
 
     def store_stats(self) -> dict:
         return dict(self._store.stats)
@@ -149,7 +169,8 @@ class Dataset:
         self.version += 1
 
     def box_tensor(self, grid_box: Tuple[Tuple[int, int], ...]) -> torch.Tensor:
-        """A tensor view of a grid-coordinate box of the home copy."""
+        """A grid-coordinate box of the home copy as a tensor (a view where
+        ``store.tensor_views``, else a copy)."""
         return self._store.tensor(self._to_index(tuple(grid_box)))
 
     # -- runtime-internal access (no version bump) ---------------------------
@@ -158,7 +179,8 @@ class Dataset:
         return self._store.read(tuple(index))
 
     def region_tensor(self, index: Tuple[slice, ...]) -> torch.Tensor:
-        """Array-index-space tensor view of the home copy."""
+        """Array-index-space region of the home copy as a tensor (a view
+        where ``store.tensor_views``, else a copy)."""
         return self._store.tensor(tuple(index))
 
     def write_region(self, index: Tuple[slice, ...], values) -> None:
@@ -172,8 +194,8 @@ class Dataset:
         return self._store.read(self._rows_index(dim, lo, hi))
 
     def rows_tensor(self, dim: int, lo: int, hi: int) -> torch.Tensor:
-        """Tensor view of rows ``[lo, hi)`` — the staging slab as a view of
-        the (pinned) home tensor."""
+        """Rows ``[lo, hi)`` as a tensor — the staging slab as a view of a
+        ``ram`` or ``mmap`` home, a copy of a ``chunked`` one's rows."""
         return self._store.tensor(self._rows_index(dim, lo, hi))
 
     def write_rows(self, dim: int, lo: int, hi: int, values) -> None:
@@ -204,10 +226,14 @@ def make_dataset(
     halo: Halo = 1,
     dtype=np.float32,
     init: Optional[np.ndarray] = None,
-    store: Union[None, str, BackingStore] = None,
+    store: Union[None, str, StoreConfig, BackingStore] = None,
 ) -> Dataset:
     """Convenience constructor; scalar halo means the same pad on every face.
-    ``init`` is either the padded array or the interior."""
+    ``init`` is either the padded array or the interior.
+
+    ``store`` selects the home tier: ``None``/``"ram"`` (default), ``"mmap"``,
+    ``"chunked"``, a :class:`~repro_torch.core.store.StoreConfig`, or a ready
+    :class:`~repro_torch.core.store.BackingStore`."""
     dat = Dataset(block=block, name=name, dtype=np.dtype(dtype),
                   halo=_halo_pairs(halo, block.ndim), store=store)
     if init is not None:

@@ -25,14 +25,17 @@ Since the Plan-IR redesign the executor is a thin planner/interpreter pair:
 memory for the whole run (raises, like the paper's segfault, if it can't fit).
 
 Data plane: home copies are host tensors (slow memory, pinned when the
-device is CUDA); slots are tensors on ``OOCConfig.device``; on CUDA the
+device is CUDA) or disk-backed stores (``mmap``/``chunked``, never pinned:
+their rows are staged through pinned buffers, and the plan's
+FetchHome/SpillHome ops run on the transfer engine's disk lane); slots are
+tensors on ``OOCConfig.device``; on CUDA the
 upload and download lanes copy on their own streams beside the compute
 stream, so the paper's three streams are real.  Modelled *timings* still come
 from the calibrated :class:`~repro_torch.core.memory.HardwareModel` ledger.
 
 Ported from ``src/repro/core/executor.py``.  Left out until their ROADMAP
-items land: the serving layer's shared plan cache (A12), the sharded
-executor's halo hook (A10) and ``debug`` plan verification (A9).
+items land: the serving layer's shared plan cache (A12) and the sharded
+executor's halo hook (A10).
 """
 from __future__ import annotations
 
@@ -84,6 +87,10 @@ class OOCConfig:
     # Host-RAM budget for dataset home copies; chains whose working set
     # exceeds it get FetchHome/SpillHome ops against the disk-backed stores.
     host_capacity: Optional[float] = None    # default: hw.host_capacity
+    # Statically verify every plan before interpreting it
+    # (repro_torch.core.verify); error-severity diagnostics raise
+    # PlanVerificationError instead of executing a corrupting stream.
+    debug: bool = False
     # -- observability (repro_torch.obs) -------------------------------------------
     # True mints a fresh span Tracer; an existing Tracer shares one spine
     # across executors (the sharded mesh and serve lanes do this).  Off by
@@ -122,6 +129,7 @@ class ChainStats:
     slot_bytes: int
     plan_cache_hit: bool = False   # chain plan replayed from cache
     plan_s: float = 0.0            # analysis + scheduling time (0 on hits)
+    verify_s: float = 0.0          # ``debug`` plan verification time
     # -- transfer subsystem --------------------------------------------------
     uploaded_wire: int = 0         # post-codec bytes the link carried up
     downloaded_wire: int = 0       # post-codec bytes the link carried down
@@ -379,6 +387,14 @@ class OutOfCoreExecutor:
                 f"(plan {ir.num_tiles} tiles x {ir.num_slots} slots, dim "
                 f"{ir.tiled_dim}; config {cp.ir.num_tiles} x "
                 f"{cp.ir.num_slots}, dim {cp.ir.tiled_dim})")
+        verify_s = 0.0
+        if cfg.debug:
+            from .verify import verify_plan  # function-level: avoids a cycle
+
+            t_verify = time.perf_counter()
+            verify_plan(ir).raise_for_errors(
+                f"chain {ir.sig_hash[:12]} (debug mode)")
+            verify_s = time.perf_counter() - t_verify
         tx = self.transfer
         tx_before = tx.snapshot()
         # Disk-tier accounting: on data-plane runs the backing stores count
@@ -396,7 +412,8 @@ class OutOfCoreExecutor:
                 chain_index=chain_index)
         else:
             if self.device.type == "cuda":
-                # Page-locked homes make the lanes' host copies asynchronous.
+                # Page-locked homes make the lanes' host copies asynchronous
+                # (``Dataset.pin`` leaves disk-backed homes alone).
                 for dat in cp.info.datasets.values():
                     dat.pin()
             interp = DataPlaneInterpreter(
@@ -443,6 +460,7 @@ class OutOfCoreExecutor:
                 slot_bytes=cp.slot_bytes,
                 plan_cache_hit=cache_hit,
                 plan_s=0.0 if cache_hit else cp.plan_s,
+                verify_s=verify_s,
                 uploaded_wire=res.uploaded_wire,
                 downloaded_wire=res.downloaded_wire,
                 compression_ratio=(raw_total / wire_total
@@ -488,9 +506,15 @@ class OutOfCoreExecutor:
             "elided_rows": rs["elided_rows"],
             "evictions": rs["evictions"],
             "pinned_hits": rs["pinned_hits"],
-            # disk tier (repro_torch.core.store): bytes across the disk boundary
+            # disk tier (repro_torch.core.store): bytes across the disk
+            # boundary (the stores' counters on the data plane) and the
+            # FetchHome/SpillHome ops the disk lane ran
             "bytes_disk_read": sum(c.disk_read for c in self.history),
             "bytes_disk_written": sum(c.disk_written for c in self.history),
+            "home_fetches": sum(c.op_counts.get("home_fetches", 0)
+                                for c in self.history),
+            "home_spills": sum(c.op_counts.get("home_spills", 0)
+                               for c in self.history),
             # device mesh: halo-exchange traffic (zero until A10)
             "halo_messages": sum(c.halo_messages for c in self.history),
             "halo_bytes": sum(c.halo_bytes for c in self.history),

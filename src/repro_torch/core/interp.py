@@ -51,6 +51,7 @@ from .plan import (
     WritebackPinned,
 )
 from .dataset import torch_dtype
+from .store import RamStore
 from .tiling import Interval
 from .transfer import ResidencyManager, Slot
 from .transfer.engine import DISK, DOWN, UP
@@ -586,6 +587,13 @@ def _nbytes(t: torch.Tensor) -> int:
     return t.numel() * t.element_size()
 
 
+def _pinned_copy(t: torch.Tensor) -> torch.Tensor:
+    """A page-locked host copy of a host tensor."""
+    buf = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+    buf.copy_(t)
+    return buf
+
+
 def _async_ok(t: torch.Tensor) -> bool:
     """A copy may be asynchronous only between device memory and pinned host
     memory, on contiguous views."""
@@ -646,6 +654,8 @@ class DataPlaneInterpreter(LedgerInterpreter):
         self.alloc_event: Any = None
         self.patches: List[Tuple[int, Any, str]] = []
         self.up_handles: Dict[int, Any] = {}
+        self.fetch_handles: Dict[int, Any] = {}   # tile -> disk-fetch handle
+        self.down_handles: Dict[int, Any] = {}    # tile -> download handle
         self.slot_down: Dict[int, Any] = {}       # slot -> its last download
         self.slot_event: Dict[int, Any] = {}      # slot -> last compute-stream op on it
         self.tile_event: Dict[int, Any] = {}      # tile -> event after its compute
@@ -820,8 +830,53 @@ class DataPlaneInterpreter(LedgerInterpreter):
             "halo exchanges on the data plane need the sharded executor "
             "(ROADMAP A10)")
 
-    # The disk tier: RAM homes have no disk traffic, so FetchHome/SpillHome
-    # stay the ledger interpreter's modelled events (disk stores are A8).
+    # -- the disk tier (real store traffic on the third worker lane) ----------
+    def stage_fetch_home(self, op: FetchHome) -> Optional[int]:
+        """Disk -> host fetch of tile ``op.tile``'s rows on the DISK lane:
+        decompresses the backing store's chunks into its cache (a no-op for
+        RAM-resident and ``mmap`` stores) so the upload worker's staging read
+        is a pure RAM hit.  The upload waits on this handle, not the other
+        way round."""
+        td = self.td
+        datasets = self.info.datasets
+        items = [(datasets[name], Interval(lo, hi))
+                 for name, lo, hi in op.items]
+
+        def task() -> Tuple[int, int]:
+            read = 0
+            for dat, iv in items:
+                read += dat.prefetch_rows(td, iv.lo, iv.hi)
+            return op.raw, read
+
+        handle = self.tx.submit(DISK, task)
+        self.fetch_handles[op.tile] = handle
+        eid = self.ledger.add(3, "fetch_home", op.raw,
+                              self.ledger.t_disk(op.raw), ())
+        self.patches.append((eid, handle, DISK))
+        return eid
+
+    def stage_spill_home(self, op: SpillHome,
+                         deps: Tuple[int, ...]) -> Optional[int]:
+        """Host -> disk retirement on the DISK lane, gated on the download
+        task that lands the rows home (handle dep, mirroring the ledger
+        event's dep on the download event)."""
+        td = self.td
+        datasets = self.info.datasets
+        items = [(datasets[name], Interval(lo, hi))
+                 for name, lo, hi in op.items]
+        dh = self.down_handles.get(op.tile)
+
+        def task() -> Tuple[int, int]:
+            written = 0
+            for dat, iv in items:
+                written += dat.spill_rows(td, iv.lo, iv.hi)
+            return op.raw, written
+
+        handle = self.tx.submit(DISK, task, deps=[dh] if dh is not None else [])
+        eid = self.ledger.add(3, "spill_home", op.raw,
+                              self.ledger.t_disk(op.raw), deps)
+        self.patches.append((eid, handle, DISK))
+        return eid
 
     # -- staging --------------------------------------------------------------
     def spec_lookup(self, name: str,
@@ -853,6 +908,7 @@ class DataPlaneInterpreter(LedgerInterpreter):
         info = self.info
         codecs = self.codecs
         arrays = slot.arrays
+        cuda = self.cuda
 
         def task() -> Tuple[int, int]:
             raw = wire = 0
@@ -872,6 +928,12 @@ class DataPlaneInterpreter(LedgerInterpreter):
                     # Hazard — codecs: the identity codec copies the pinned
                     # home rows straight into the slot.
                     src = dat.rows_tensor(td, use.lo, use.hi)
+                    if cuda and not src.is_pinned():
+                        # Hazard — disk-backed homes are never pinned: their
+                        # rows (a memmap view, or a copy read through the
+                        # chunk cache) go through a pinned staging buffer,
+                        # so the DMA to the slot stays asynchronous.
+                        src = _pinned_copy(src)
                     r = w = _nbytes(src)
                 else:
                     # Any other codec round-trips through NumPy on the host,
@@ -904,6 +966,9 @@ class DataPlaneInterpreter(LedgerInterpreter):
             # Hazard — in-place slot writes: a reused slot's download must
             # have read it before this upload overwrites it.
             conflicts.append(dh)
+        fh = self.fetch_handles.get(op.tile)
+        if fh is not None:      # disk tier: rows must be host-resident first
+            conflicts.append(fh)
         # Hazard — streams: the upload lane waits for the slot allocation and
         # for the last compute-stream op that read or wrote this slot.
         waits = (self.alloc_event, self.slot_event.get(slot.index))
@@ -986,29 +1051,38 @@ class DataPlaneInterpreter(LedgerInterpreter):
         def task() -> Tuple[int, int]:
             raw = wire = 0
             pairs = []
-            coded = []
+            landed = []
             for name, iv in items:
                 dat = info.datasets[name]
                 arr = arrays[name]
                 src = arr[_rows(arr, iv.lo - org[name], iv.hi - org[name], td)]
-                if codecs[name].name == "identity":
+                if (codecs[name].name == "identity"
+                        and isinstance(dat.store, RamStore)):
                     # Hazard — host-side NumPy on device tensors: the rows go
                     # straight into the pinned home, not through np.asarray.
                     pairs.append((dat.rows_tensor(td, iv.lo, iv.hi), src))
                     raw += _nbytes(src)
                     wire += _nbytes(src)
                 else:
+                    # A compressing codec, or a disk-backed home (never
+                    # pinned): the rows land in a pinned buffer first.
                     host = torch.empty(src.shape, dtype=src.dtype, pin_memory=pin)
                     pairs.append((host, src))
-                    coded.append((dat, iv, host))
+                    landed.append((dat, iv, host))
             self._lane_copy(DOWN, pairs, waits)
-            for dat, iv, host in coded:
-                # Compressing codecs round-trip through NumPy, as in the
-                # reference.
-                dec, r, w = codecs[dat.name].roundtrip(host.numpy())
+            for dat, iv, host in landed:
+                codec = codecs[dat.name]
+                if codec.name == "identity":
+                    # Through the store: write_rows (chunked) or the memmap.
+                    dat.write_rows(td, iv.lo, iv.hi, host)
+                    r = w = _nbytes(host)
+                else:
+                    # Compressing codecs round-trip through NumPy, as in the
+                    # reference.
+                    dec, r, w = codec.roundtrip(host.numpy())
+                    dat.write_rows(td, iv.lo, iv.hi, np.asarray(dec, dat.dtype))
                 raw += r
                 wire += w
-                dat.write_rows(td, iv.lo, iv.hi, np.asarray(dec, dat.dtype))
             return raw, wire
 
         return task
@@ -1029,6 +1103,7 @@ class DataPlaneInterpreter(LedgerInterpreter):
                                            (self.tile_event.get(op.tile),)),
             deps=read_deps)
         self.slot_down[slot.index] = handle
+        self.down_handles[op.tile] = handle
         eid = self.ledger.add(2, "download", op.raw,
                               self.ledger.t_down(op.raw), deps)
         self.patches.append((eid, handle, DOWN))

@@ -28,9 +28,10 @@ Ported from ``src/repro/core/program.py``.  ``ExecutionConfig`` gains
 CPU must be asked for).  Stencil inference traces kernels against torch CPU
 tensors.  ``fetch``/``reduction`` still return NumPy, like the reference's
 public API.  Not ported yet, and raising ``NotImplementedError`` that names
-their ROADMAP items: ``verify``/``tune`` and ``debug=True`` (A9),
-``checkpoint``/``restore`` (A8), sharded meshes (A10) and server sessions
-(A12).  The reference's deprecated ``Runtime`` shims are not carried over.
+their ROADMAP items: sharded meshes (A10, and with them ``tune``'s
+``meshes=`` grid) and server sessions (A12).  The reference's deprecated
+``Runtime`` shims are not carried over.  ``close()`` also flushes and closes
+the disk-backed homes (``mmap``/``chunked``) the session has seen.
 """
 from __future__ import annotations
 
@@ -100,7 +101,9 @@ class ExecutionConfig:
     # multi-device mesh raises until the sharded executor is ported (ROADMAP
     # A10), and with it the reference's ``shard_dim``/``halo_depth``.
     mesh: Union[None, int, str, "DeviceMesh"] = None  # noqa: F821
-    # -- static verification: raises until verify.py is ported (ROADMAP A9) ---
+    # -- static verification (repro_torch.core.verify) ----------------------
+    # Verify every plan before interpreting it; error-severity diagnostics
+    # raise PlanVerificationError instead of executing a corrupting stream.
     debug: bool = False
     # -- observability (repro_torch.obs) ---------------------------------------------
     # ``trace=True`` mints a span Tracer shared by every executor this config
@@ -113,10 +116,6 @@ class ExecutionConfig:
 
     def __post_init__(self) -> None:
         self.device = str(resolve_device(self.device))
-        if self.debug:
-            raise NotImplementedError(
-                "debug=True verifies plans with core/verify.py, which the port "
-                "has not ported yet (ROADMAP A9)")
         if isinstance(self.hw, str):
             if self.hw not in PRESETS:
                 raise ValueError(
@@ -140,6 +139,7 @@ class ExecutionConfig:
             transfer=self.transfer, codec=self.codec,
             pinned=tuple(self.pinned),
             host_capacity=self.host_capacity,
+            debug=self.debug,
             trace=self.trace,
             device=self.device,
         )
@@ -625,45 +625,113 @@ class Session:
                     + self._plan_split(ex, tail, t_live, t_warm))
 
     def verify(self, loops=None):
-        """Static plan verification: ``core/verify.py`` is not ported yet."""
-        raise NotImplementedError("Session.verify needs core/verify.py "
-                                  "(ROADMAP A9)")
+        """Statically verify the plans for the queued loops (or ``loops``)
+        without executing anything.  Returns a
+        :class:`~repro_torch.core.verify.VerifyResult` — every chain's stream
+        is abstract-interpreted for residency/dirty-loss/halo soundness and
+        transfer-lane ordering.  ``session.verify().ok`` is the
+        machine-checkable answer to "will this step's plans corrupt data"."""
+        from .verify import verify_plans
+
+        return verify_plans(self.plan(loops))
 
     def explain(self, loops=None, *, verify: bool = False) -> str:
         """Human-readable per-tile op listing for the queued loops (or
         ``loops``): staging/compute/carry/download per tile with modelled
         bytes, op totals, and the ledger-modelled makespan per chain —
-        the same text the reference prints for the same plans.
-        ``verify=True`` needs the static verifier (ROADMAP A9)."""
+        the same text the reference prints for the same plans.  With
+        ``verify=True`` the static verifier's diagnostic summary is
+        appended."""
         from .plan import format_plan
 
-        if verify:
-            self.verify(loops)
         plans = self.plan(loops)
         if not plans:
             return "(nothing queued: record loops before explain())"
         hw = self.config.hw if self.config is not None else getattr(
             getattr(self.backend, "cfg", None), "hw", None)
-        return "\n\n".join(
-            format_plan(p, hw, title=f"chain {i}/{len(plans)}")
-            for i, p in enumerate(plans))
+        blocks = [format_plan(p, hw, title=f"chain {i}/{len(plans)}")
+                  for i, p in enumerate(plans)]
+        if verify:
+            from .verify import verify_plans
+
+            blocks.append(verify_plans(plans).summary())
+        return "\n\n".join(blocks)
 
     def tune(self, loops=None, *, apply: bool = False, repeats: int = 2,
              **grids):
-        """The sim-costed autotuner: ``core/tune.py`` is not ported yet."""
-        raise NotImplementedError("Session.tune needs core/tune.py "
-                                  "(ROADMAP A9)")
+        """Enumerate candidate configs (``num_tiles`` × ``tiled_dim`` ×
+        ``num_slots`` × codec), cost each on the queued loops (or ``loops``)
+        via the sim interpreter, and return the best as a
+        :class:`~repro_torch.core.tune.TuneResult` — modelled makespan never
+        worse than this session's config, which is always a candidate.  With
+        ``apply=True`` the session's backend is rebuilt around the winner
+        (the queue survives: loops reference datasets, not the backend).  A
+        ``meshes=`` grid with a multi-device candidate raises
+        ``NotImplementedError`` (sharded execution is ROADMAP A10)."""
+        from .tune import tune_configs
+
+        loops = list(self.queue) if loops is None else list(loops)
+        if self.config is None:
+            raise ValueError(
+                "sessions over a hand-built backend object have no "
+                "ExecutionConfig to tune")
+        result = tune_configs(loops, self.config, repeats=repeats, **grids)
+        if apply:
+            old = getattr(self.backend, "close", None)
+            if old is not None:
+                old()
+            self.config = result.best
+            self.backend = make_backend(result.best)
+            self.executor = self.backend
+        return result
 
     # -- checkpoint / restart -----------------------------------------------------
     def checkpoint(self, path: str, datasets=None) -> Dict:
-        """Checkpoints need the store's checkpoint module (ROADMAP A8)."""
-        raise NotImplementedError("Session.checkpoint needs "
-                                  "core/store/checkpoint.py (ROADMAP A8)")
+        """Write a restartable snapshot to ``path`` (atomic write-then-rename),
+        in the reference package's npz + JSON manifest format.
+
+        Flushes pending loops first, then captures every dataset this session
+        has seen (or the explicit ``datasets``) — materialised home copies,
+        versions — plus the plan-cache signature hashes for provenance.  A
+        run killed after this call resumes bit-identically via
+        :meth:`restore`.  Returns the manifest.
+
+        App-level *scalars* (a CFL ``dt``, a step counter steering sweep
+        direction) live outside the runtime; persist and restore those
+        alongside the checkpoint yourself."""
+        from .store import save_checkpoint
+
+        self.flush()
+        dats = list(datasets) if datasets is not None else list(
+            self.datasets.values())
+        plans = getattr(self.backend, "_plans", {}).values()
+        sigs = [cp.ir.sig_hash for cp in plans
+                if getattr(cp, "ir", None) is not None]
+        return save_checkpoint(path, dats,
+                               chains_flushed=self.chains_flushed,
+                               plan_signatures=sigs)
 
     def restore(self, path: str, datasets=None) -> Dict:
-        """Checkpoints need the store's checkpoint module (ROADMAP A8)."""
-        raise NotImplementedError("Session.restore needs "
-                                  "core/store/checkpoint.py (ROADMAP A8)")
+        """Load a :meth:`checkpoint` back into live datasets (matched by
+        name; shapes/dtypes validated) and reset device-side data caches so
+        nothing stale survives from before the snapshot: pinned device
+        copies and prefetch captures are dropped.  In a fresh process the
+        session has not seen any loops yet — pass the new app's datasets
+        explicitly.  Pending queued loops are dropped (they reference
+        pre-restore state).  Returns the manifest."""
+        from .store import load_checkpoint
+
+        dats = list(datasets) if datasets is not None else list(
+            self.datasets.values())
+        manifest = load_checkpoint(path, dats)
+        for d in dats:
+            self.datasets[d.name] = d
+        self.queue.clear()
+        self._red_results.clear()
+        reset = getattr(self.backend, "reset_data_caches", None)
+        if reset is not None:
+            reset()
+        return manifest
 
     # -- introspection -----------------------------------------------------------
     @property
@@ -684,8 +752,10 @@ class Session:
         }
 
     def close(self) -> None:
-        """Flush pending loops and release backend resources (the threaded
-        transfer engine's worker threads, for ``ooc``-family backends).
+        """Flush pending loops, release backend resources (the threaded
+        transfer engine's worker threads, for ``ooc``-family backends), then
+        flush and close the homes this session has seen (a no-op for RAM
+        homes; ``mmap``/``chunked`` data stays on disk and readable).
         Idempotent: the second and later calls are no-ops."""
         if self._closed:
             return
@@ -694,6 +764,8 @@ class Session:
         fn = getattr(self.backend, "close", None)
         if fn is not None:
             fn()
+        for dat in self.datasets.values():
+            dat.close()
 
     # -- context manager: worker threads must not outlive the with-block ------
     def __enter__(self) -> "Session":

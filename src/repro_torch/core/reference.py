@@ -3,14 +3,16 @@
 Ported from ``src/repro/core/reference.py``.  The oracle every other
 execution strategy is validated against: loops run in program order, and
 their reads and writes hit whole padded arrays.  On the CPU those arrays are
-the homes themselves (the accessor hands kernels views of them).  On a CUDA
-device a chain first copies every dataset it touches up whole, runs there,
-and copies the datasets it wrote back home at its end — so the oracle of a
-CUDA session runs on the card, not on a hidden host path.
+the homes themselves (the accessor hands kernels views of them) where every
+home gives live tensor views (``ram`` and ``mmap``).  On a CUDA device, and
+for ``chunked`` homes (whose tensors are copies), a chain first copies every
+dataset it touches up whole, runs there, and copies the datasets it wrote
+back home at its end — so the oracle of a CUDA session runs on the card, not
+on a hidden host path.
 """
 from __future__ import annotations
 
-from typing import Dict, Optional, Sequence, Tuple
+from typing import Dict, Iterable, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -21,6 +23,11 @@ from .loop import AccessMode, Accessor, ParallelLoop
 
 def _whole(dat: Dataset) -> Tuple[slice, ...]:
     return (slice(None),) * dat.ndim
+
+
+def _live(dats: Iterable[Dataset]) -> bool:
+    """Whether every home's tensor form is a live view (``ram``/``mmap``)."""
+    return all(d.store.tensor_views for d in dats)
 
 
 class _TensorAccessor(Accessor):
@@ -62,10 +69,14 @@ def run_loop_reference(lp: ParallelLoop,
                        arrays: Optional[Dict[str, torch.Tensor]] = None
                        ) -> Dict[str, np.ndarray]:
     """Execute one loop eagerly over ``arrays`` (whole padded tensors by
-    dataset name, all on one device; default: the home tensors); returns
-    reduction results (if any) as NumPy."""
+    dataset name, all on one device; default: the home tensors, or copies
+    written back for homes without live views); returns reduction results
+    (if any) as NumPy."""
     if arrays is None:
-        arrays = {a.dat.name: a.dat.region_tensor(_whole(a.dat)) for a in lp.args}
+        dats = {a.dat.name: a.dat for a in lp.args}
+        if not _live(dats.values()):
+            return run_chain_reference([lp])
+        arrays = {n: d.region_tensor(_whole(d)) for n, d in dats.items()}
     device = (next(iter(arrays.values())).device if arrays
               else torch.device("cpu"))
     acc = _TensorAccessor(lp, arrays, device)
@@ -113,14 +124,15 @@ def run_chain_reference(loops: Sequence[ParallelLoop],
                         device: torch.device = torch.device("cpu")
                         ) -> Dict[str, np.ndarray]:
     """Execute a chain eagerly in program order on ``device``; merge
-    reductions.  Off the CPU, every dataset the chain touches is copied up
-    whole first and every dataset it wrote is copied home at the end."""
+    reductions.  Off the CPU (or with a home that has no live tensor views),
+    every dataset the chain touches is copied up whole first and every
+    dataset it wrote is copied home at the end."""
     merged: Dict[str, np.ndarray] = {}
-    if device.type == "cpu":
+    dats = {a.dat.name: a.dat for lp in loops for a in lp.args}
+    if device.type == "cpu" and _live(dats.values()):
         for lp in loops:
             merge_loop_reductions(merged, lp, run_loop_reference(lp))
         return merged
-    dats = {a.dat.name: a.dat for lp in loops for a in lp.args}
     arrays = {n: d.region_tensor(_whole(d)).to(device) for n, d in dats.items()}
     written = set()
     for lp in loops:

@@ -162,6 +162,38 @@ def test_opensbli_two_step_chains_match_jax_reference(backend, jax_sbli):
     assert sess.chains_flushed <= 4
 
 
+def _sim_plans_3d(pkg, apps, name, chain_steps):
+    """Plans of ``chain_steps`` timesteps recorded as one chain after init,
+    with Cyclic on, at a fixed dt (both packages' app loops, names and
+    stencils are the same, so the plans must be too)."""
+    app = (apps.CloverLeaf3D(14, 12, 10, summary_every=0) if name == "cloverleaf3d"
+           else apps.OpenSBLI(16, chain_steps=chain_steps))
+    kw = {"device": "cpu"} if pkg is T else {}
+    sess = pkg.Session("sim", hw=pkg.P100_PCIE, num_tiles=4, **kw)
+    app.record_init(sess)
+    sess.flush()
+    sess.cyclic = True
+    if name == "cloverleaf3d":
+        app.dt = 1e-4
+    for _ in range(chain_steps):
+        app.record_timestep(sess)
+    plan_json, explain = pkg.plans_to_json(sess.plan()), sess.explain()
+    sess.flush()
+    return plan_json, explain, [h.modelled_s for h in sess.history]
+
+
+@pytest.mark.parametrize("chain_steps", [1, 2])
+@pytest.mark.parametrize("name", ["cloverleaf3d", "opensbli"])
+def test_3d_app_plans_equal_jax(name, chain_steps):
+    """ROADMAP A5's plan-parity check for the 3-D apps: ``plans_to_json``,
+    ``explain()`` and the modelled makespans are equal in both packages."""
+    want = _sim_plans_3d(J, JA, name, chain_steps)
+    got = _sim_plans_3d(T, TA, name, chain_steps)
+    assert got[0] == want[0]
+    assert got[1] == want[1]
+    assert got[2] == want[2] and all(t > 0 for t in got[2])
+
+
 @pytest.mark.parametrize("app, n_dats", [
     (lambda: TA.CloverLeaf3D(8, 8, 8), 30),   # §5.1: 30 variables
     (lambda: TA.OpenSBLI(8), 29),             # §5.1: 29 datasets
@@ -183,14 +215,41 @@ def test_opensbli_24_loops_per_step():
 
 
 @pytest.mark.parametrize("make, err", [
-    (lambda: TA.CloverLeaf2D(16, 16, mesh=2).make_session(), NotImplementedError),
-    (lambda: TA.CloverLeaf3D(8, 8, 8, mesh="sim:2").make_session(), NotImplementedError),
-    (lambda: TA.OpenSBLI(8, mesh=2).make_session(), NotImplementedError),
-    (lambda: TA.CloverLeaf2D(16, 16, store="mmap"), T.StoreError),
+    (lambda tmp: TA.CloverLeaf2D(16, 16, mesh=2).make_session(), NotImplementedError),
+    (lambda tmp: TA.CloverLeaf3D(8, 8, 8, mesh="sim:2").make_session(),
+     NotImplementedError),
+    (lambda tmp: TA.OpenSBLI(8, mesh=2).make_session(), NotImplementedError),
+    (lambda tmp: TA.CloverLeaf2D(16, 16, store=T.StoreConfig(
+        kind="mmap", directory=str(tmp))), None),
 ], ids=["cl2d-mesh", "cl3d-mesh", "opensbli-mesh", "cl2d-mmap"])
-def test_unported_app_knobs_raise(make, err):
+def test_unported_app_knobs_raise(make, err, tmp_path):
+    """``mesh=`` (ROADMAP A10) raises; ``store="mmap"`` (``err`` None) has
+    been ported with the disk tier and now gives every home an mmap store."""
+    if err is None:
+        app = make(tmp_path)
+        assert {d.store.kind for d in app.dats.values()} == {"mmap"}
+        return
     with pytest.raises(err, match="ROADMAP"):
-        make()
+        make(tmp_path)
+
+
+def test_run_is_init_then_run_steps():
+    """``run(steps=3)`` and ``run(steps=1)`` followed by ``run_steps(1, 3)``
+    give the same fields, dt, step count and summaries, bit for bit (the
+    step loop a resumed run continues with)."""
+    def fields(app, sess):
+        return {n: sess.fetch(app.d(n)) for n in ("density0", "energy0", "xvel0")}
+
+    whole = TA.CloverLeaf2D(20, 14, summary_every=1)
+    sess = T.Session("ooc", device="cpu", num_tiles=2)
+    want = whole.run(sess, steps=3)
+    parts = TA.CloverLeaf2D(20, 14, summary_every=1)
+    sess2 = T.Session("ooc", device="cpu", num_tiles=2)
+    parts.run(sess2, steps=1)
+    got = parts.run_steps(sess2, 1, 3)
+    assert got == want and set(want) and (parts.dt, parts.step_count) == (whole.dt, 3)
+    for name, arr in fields(whole, sess).items():
+        assert np.array_equal(fields(parts, sess2)[name], arr), name
 
 
 def test_make_session_without_mesh_is_plain_ooc():
