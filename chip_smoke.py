@@ -8,6 +8,7 @@
                                      # profiled: where its wall time goes
     python3 chip_smoke.py --disk     # only phase 8 and the CloverLeaf 2D runs
                                      # of phase 7 it is held against
+    python3 chip_smoke.py --mesh     # only phase 9 and the same two runs
 
 Phases, each of which asserts (any failure exits non-zero):
 
@@ -70,10 +71,26 @@ Phases, each of which asserts (any failure exits non-zero):
    Records: wall per step (planning, verify, the rest), disk bytes, home
    fetches and spills, the disk lane's busy seconds, H2D/D2H GB/s beside
    phase 7's pinned RAM homes, peak device memory, checkpoint and restore
-   seconds, the spill directory's free bytes.
+   seconds, the spill directory's free bytes;
+9. sharded execution — CloverLeaf 2D at phase 7's size on four shards:
+   ``mesh="sim:4"`` along dim 1 (the skirt sized automatically), each
+   shard out of core at a quarter of phase 7's capacity, traced for the
+   mesh spans, on ``ooc-sharded`` and then ``ooc-async`` (bit-identical to
+   it).  Fields rtol 1e-4 / atol 1e-5 and summaries rtol 1e-3 of phase 7's
+   ``reference`` run, the difference to phase 7's ``ooc`` run printed, the
+   plans' halo messages and bytes equal to the achieved ones, peak device
+   memory below the homes.  Records per step: wall, planning seconds summed
+   over the shards, scatter / gather / exchange seconds from the mesh
+   spans, halo traffic; the lanes' GB/s, peak device memory, pinned host
+   bytes.  Then ``distributed.exchange_halos`` on the card (four buffers
+   at these widths and depth on ``cuda:0``, non-periodic and periodic),
+   ``torch.equal`` to the CPU, timed beside its bound; and a ``cuda:N``
+   mesh bit for bit against ``sim:N`` where the machine has two or more
+   cards (else a ``mesh_cuda`` record says it did not run).  Every phase 9
+   record carries the card's ``nvidia-smi`` name and power limit.
 
 Every line but the last two is a JSON record.  The line before the last
-JSON ``ok`` line lists every ported kernel (phases 7 and 8 launch none of
+JSON ``ok`` line lists every ported kernel (phases 7, 8 and 9 launch none of
 them: the apps' loops are torch ops); the card's ``nvidia-smi`` name and power
 limit are printed on their own line before it.  The script
 imports nothing of JAX or of the JAX package.
@@ -650,6 +667,7 @@ def run_app(name: str, make_app, backend: str, steps: int, drive=None,
         d.pin()
     sess = Session(backend, **kw)
     chains = []
+    windows = []
     run_chain = sess._run
 
     def timed(chain):
@@ -658,6 +676,7 @@ def run_app(name: str, make_app, backend: str, steps: int, drive=None,
         t0 = time.perf_counter()
         run_chain(chain)
         torch.cuda.synchronize()
+        windows.append((t0, time.perf_counter()))
         hist = sess.history[before:]
         chains.append({
             "loops": len(chain), "first": chain[0].name, "last": chain[-1].name,
@@ -666,7 +685,9 @@ def run_app(name: str, make_app, backend: str, steps: int, drive=None,
             "plan_s": sum(h.plan_s for h in hist),
             "verify_s": sum(h.verify_s for h in hist),
             "cache_hits": sum(h.plan_cache_hit for h in hist),
-            "loop_bytes": sum(h.loop_bytes for h in hist)})
+            "loop_bytes": sum(h.loop_bytes for h in hist),
+            "halo_messages": sum(h.halo_messages for h in hist),
+            "halo_bytes": sum(h.halo_bytes for h in hist)})
 
     sess._run = timed
     torch.cuda.empty_cache()
@@ -678,6 +699,15 @@ def run_app(name: str, make_app, backend: str, steps: int, drive=None,
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated() - base
+    tracer = sess.trace()
+    if tracer is not None:
+        # The sharded executor's scatter / gather / halo-exchange spans (its
+        # ``mesh`` track), each chain's by the wall window it ran in.
+        spans = [sp for sp in tracer.spans() if sp.cat == "mesh"]
+        for c, (a, b) in zip(chains, windows):
+            c["mesh_s"] = {k: sum(sp.t_end - sp.t_start for sp in spans
+                                  if sp.name == k and a <= sp.t_start < b)
+                           for k in MESH_SPANS}
     sess.close()
     out = {"backend": backend, "summary": summary, "wall_s": wall,
            "chains": chains, "peak_device_bytes": peak,
@@ -692,6 +722,9 @@ def run_app(name: str, make_app, backend: str, steps: int, drive=None,
     gc.collect()
     torch.cuda.empty_cache()
     return out
+
+
+MESH_SPANS = ("scatter", "gather", "halo-exchange")
 
 
 def app_check(name: str, got: dict, want: dict, what: str) -> float:
@@ -883,7 +916,7 @@ SPILL_ROOT = Path(__file__).resolve().parent / "build" / "spill"
 
 def cl2d_baselines(n: int, steps: int = 4) -> dict:
     """Phase 7's CloverLeaf 2D ``ooc`` (RAM homes, with digests) and
-    ``reference`` runs, for running phase 8 alone."""
+    ``reference`` runs, for running phase 8 or phase 9 alone."""
     from repro_torch.apps import CloverLeaf2D
 
     homes = 25 * (n + 4) ** 2 * 4
@@ -891,7 +924,7 @@ def cl2d_baselines(n: int, steps: int = 4) -> dict:
     out = {"ooc": run_app("cloverleaf2d", make, "ooc", steps, digests=True,
                           hw="p100-pcie", capacity_bytes=homes / 3, prefetch=True),
            "reference": run_app("cloverleaf2d", make, "reference", steps)}
-    emit(phase="disk_baseline", interior=[n, n], steps=steps,
+    emit(phase="cl2d_baseline", interior=[n, n], steps=steps,
          ooc_wall_s=out["ooc"]["wall_s"], reference_wall_s=out["reference"]["wall_s"])
     return out
 
@@ -1026,6 +1059,160 @@ def disk_phase(n: int, baseline: dict, steps: int = 4) -> None:
         shutil.rmtree(spill, ignore_errors=True)
 
 
+# -- phase 9: sharded execution ---------------------------------------------------
+
+
+def exchange_bench(rows: int, width: int, depth: int, reps: int, smi: str) -> None:
+    """``distributed.exchange_halos`` on the card: four shard buffers of
+    ``rows`` x ``width`` (phase 9's widths and exchange depth), all on
+    ``cuda:0``, non-periodic and periodic; the result ``torch.equal`` to the
+    same call on CPU tensors, timed with CUDA events beside its bound (the
+    bands' bytes moved twice, read and written, over the HBM rate)."""
+    from repro_torch.core.distributed import exchange_halos
+
+    rng = np.random.default_rng(9)
+    host = [torch.from_numpy(rng.random((rows, width), dtype=np.float32))
+            for _ in range(4)]
+    for periodic in (False, True):
+        want = exchange_halos([{"u": h.clone()} for h in host], depth, 1, periodic)
+        dev = [{"u": h.to("cuda")} for h in host]
+        exchange_halos(dev, depth, 1, periodic)
+        torch.cuda.synchronize()
+        equal = all(torch.equal(w["u"], d["u"].cpu()) for w, d in zip(want, dev))
+        check(equal, f"exchange_halos on the card (periodic={periodic}) equals the CPU's")
+        messages = 2 * (4 if periodic else 3)
+        nbytes = messages * rows * depth * 4
+        emit(phase="mesh_exchange", periodic=periodic, shards=4, shape=[rows, width],
+             depth=depth, messages=messages, bytes=nbytes, equal_to_cpu=equal,
+             ms=time_ms(lambda: exchange_halos(dev, depth, 1, periodic), reps),
+             bound_ms=2 * nbytes / PEAK_BYTES_S * 1e3, bound_by="bytes", card=smi)
+        del dev
+    torch.cuda.empty_cache()
+
+
+def mesh_record(run: dict, steps: int) -> dict:
+    """Phase 9's per-run record: the init chain, then the steps' totals and
+    their mean per step — wall, planning seconds summed over the shards,
+    the mesh spans' scatter, gather and exchange seconds, halo messages and
+    bytes — and every chain; the lanes' rates and peak device memory."""
+    def totals(chains):
+        out = {"wall_s": sum(c["wall_s"] for c in chains),
+               "plan_s": sum(c["plan_s"] for c in chains),
+               "halo_messages": sum(c["halo_messages"] for c in chains),
+               "halo_bytes": sum(c["halo_bytes"] for c in chains)}
+        for k in MESH_SPANS:
+            out[f"{k}_s"] = sum(c["mesh_s"][k] for c in chains)
+        return out
+
+    after = totals(run["chains"][1:])
+    return {"wall_s": run["wall_s"], "init": totals(run["chains"][:1]),
+            "steps_after_init": after,
+            "per_step": {k: v / steps for k, v in after.items()},
+            "chains": [{k: c[k] for k in ("loops", "first", "last", "tiles", "wall_s",
+                                          "plan_s", "halo_messages", "halo_bytes",
+                                          "mesh_s")} for c in run["chains"]],
+            "peak_device_bytes": run["peak_device_bytes"],
+            "summary": run["summary"], **lane_record(run)}
+
+
+def mesh_phase(n: int, baseline: dict, smi: str, steps: int = 4, reps: int = 20) -> None:
+    """CloverLeaf 2D at an n^2 interior on four shards: ``sim:4`` along
+    dim 1 with the skirt sized automatically, each shard out of core at a
+    quarter of phase 7's capacity (so the four together hold what phase 7's
+    one device did), traced for the mesh spans; on ``ooc-sharded``, then on
+    ``ooc-async`` with the same mesh (bit-identical to it).  Held against
+    phase 7's ``reference`` run (``baseline``), its difference to phase 7's
+    ``ooc`` run printed; the plans' halo counts against the achieved ones.
+    Then ``exchange_halos`` on the card at these widths, and a ``cuda:N``
+    mesh where the machine has two or more cards."""
+    from repro_torch.apps import CloverLeaf2D
+    from repro_torch.core import ShardedOutOfCoreExecutor
+
+    t_phase = time.perf_counter()
+    homes = 25 * (n + 4) ** 2 * 4
+    cap = homes / 3 / 4
+    make = lambda: CloverLeaf2D(n, n, summary_every=2)  # noqa: E731
+    kw = dict(hw="p100-pcie", capacity_bytes=cap, prefetch=True, trace=True)
+
+    def sharded(info):
+        def drive(app, sess):
+            out = app.run(sess, steps=steps)
+            be = sess.backend
+            check(isinstance(be, ShardedOutOfCoreExecutor), f"backend {type(be).__name__}")
+            (state,) = be._states.values()
+            st = sess.transfer_stats()
+            info.update(
+                exchange_path=be.exchange_path, skirt=state.skirt,
+                shard_widths=[g.width for g in state.geos],
+                ledger_halo_messages=st["halo_messages"],
+                ledger_halo_bytes=st["halo_bytes"],
+                achieved_halo_messages=be.halo_stats.messages,
+                achieved_halo_bytes=be.halo_stats.bytes,
+                pinned_host_bytes={
+                    "global_homes": sum(d.nbytes for d in app.dats.values()
+                                        if d.store.tensor().is_pinned()),
+                    "shard_homes": sum(d.nbytes for ls in state.locals.values()
+                                       for d in ls if d.store.tensor().is_pinned())},
+                inner_chains=[len(ex.history) for ex in be.inner])
+            return out
+        return drive
+
+    runs, infos = {}, {}
+    for backend in ("ooc-sharded", "ooc-async"):
+        info = infos[backend] = {}
+        run = runs[backend] = run_app("cloverleaf2d", make, backend, steps,
+                                      drive=sharded(info), mesh="sim:4", **kw)
+        check(info["ledger_halo_messages"] == info["achieved_halo_messages"] > 0
+              and info["ledger_halo_bytes"] == info["achieved_halo_bytes"] > 0,
+              f"{backend}: ledger halo counts equal the achieved ones ({info})")
+        check(all(t > 1 for c in run["chains"] for t in c["tiles"]),
+              f"{backend}: every shard ran out of core")
+        check(run["peak_device_bytes"] < homes,
+              f"{backend}: peak {run['peak_device_bytes']} B not below the homes {homes} B")
+        err = app_check("cloverleaf2d", run, baseline["reference"], f"{backend} vs reference")
+        ooc = baseline["ooc"]
+        diff_ooc = max(float(np.abs(run["fields"][f] - ooc["fields"][f]).max())
+                       for f in APP_FIELDS["cloverleaf2d"])
+        emit(phase="mesh", app="cloverleaf2d", backend=backend, mesh="sim:4",
+             shard_dim=1, interior=[n, n], steps=steps, home_bytes=homes,
+             capacity_bytes_per_device=cap, capacity_bytes_all_devices=4 * cap,
+             peak_over_four_capacities=run["peak_device_bytes"] / (4 * cap),
+             max_abs_err_vs_reference=err, max_abs_diff_vs_phase7_ooc=diff_ooc,
+             bit_identical_to_phase7_ooc=diff_ooc == 0.0, card=smi,
+             **info, **mesh_record(run, steps))
+    a, b = runs["ooc-sharded"], runs["ooc-async"]
+    check(all(np.array_equal(a["fields"][f], b["fields"][f])
+              for f in APP_FIELDS["cloverleaf2d"]) and a["summary"] == b["summary"],
+          "sim:4: ooc-async is bit-identical to ooc-sharded")
+    emit(phase="mesh_check", ooc_async_bit_identical=True, card=smi)
+
+    skirt = infos["ooc-sharded"]["skirt"]
+    exchange_bench(n + 4, n // 4 + 2 * (skirt + 2), skirt + 2, reps, smi)
+
+    count = torch.cuda.device_count()
+    if count < 2:
+        emit(phase="mesh_cuda", ran=False, devices=count, card=smi)
+    else:
+        k = min(4, count)
+        want = a
+        if k != 4:
+            want = run_app("cloverleaf2d", make, "ooc-sharded", steps, mesh=f"sim:{k}", **kw)
+        info = {}
+        for i in range(k):
+            torch.cuda.reset_peak_memory_stats(i)
+        got = run_app("cloverleaf2d", make, "ooc-sharded", steps, drive=sharded(info),
+                      mesh=f"cuda:{k}", **kw)
+        info["peak_device_bytes_by_card"] = [torch.cuda.max_memory_allocated(i)
+                                             for i in range(k)]
+        check(info["exchange_path"] == "peer", f"cuda:{k} exchanged on {info['exchange_path']}")
+        check(all(np.array_equal(got["fields"][f], want["fields"][f])
+                  for f in APP_FIELDS["cloverleaf2d"]) and got["summary"] == want["summary"],
+              f"cuda:{k} is bit-identical to sim:{k}")
+        emit(phase="mesh_cuda", ran=True, devices=count, mesh=f"cuda:{k}",
+             bit_identical_to_sim=True, card=smi, **info, **mesh_record(got, steps))
+    emit(phase="mesh_done", seconds=time.perf_counter() - t_phase, card=smi)
+
+
 def profile_phase(n: int, steps: int) -> None:
     """The out-of-core path once more per backend, with the span tracer on
     and torch.profiler around the replayed round's flush: host time by plan
@@ -1086,6 +1273,8 @@ def main() -> int:
                     help="only profile the out-of-core path (no result line)")
     ap.add_argument("--disk", action="store_true",
                     help="only phase 8 and its phase 7 baselines (no result line)")
+    ap.add_argument("--mesh", action="store_true",
+                    help="only phase 9 and its phase 7 baselines (no result line)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on a GPU",
@@ -1103,6 +1292,9 @@ def main() -> int:
     if args.disk:
         disk_phase(napp2, cl2d_baselines(napp2))
         return 0
+    if args.mesh:
+        mesh_phase(napp2, cl2d_baselines(napp2), smi, reps=reps)
+        return 0
     build_phase()
     path = kernels_phase(n2d, n3d, reps)
     launches = kernel_path_phase(n2d, n3d)
@@ -1116,6 +1308,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     baseline = apps_phase(napp2, napp3)
     disk_phase(napp2, baseline)
+    mesh_phase(napp2, baseline, smi, reps=reps)
     del baseline
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": SOURCES[name][0],

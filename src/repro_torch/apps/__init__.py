@@ -14,8 +14,9 @@ decides it.
 * ``opensbli`` — 3-D Taylor–Green vortex, RK3, 29 datasets, 24 loops a
   step, no reductions in the main phase (chains span ``chain_steps``).
 
-``mesh=`` (sharded execution) is ROADMAP item A10 of the port and raises;
-``store=`` accepts what :func:`repro_torch.core.make_store` does.
+``mesh=`` makes ``make_session`` build an ``ooc-sharded`` Session over that
+mesh (``sim:N`` or ``cuda:N``); ``store=`` accepts what
+:func:`repro_torch.core.make_store` does.
 """
 from .cloverleaf2d import CloverLeaf2D
 from .cloverleaf3d import CloverLeaf3D

@@ -41,13 +41,15 @@ class OpenSBLI:
     # Home-copy tier for every dataset: None/"ram" (default), "mmap",
     # "chunked", or a repro_torch.core.StoreConfig (see repro_torch.core.store).
     store: object = None
-    # Device mesh for make_session(): sharded execution is ROADMAP A10 of
-    # the port, so anything but None raises there.
+    # Device mesh for make_session(): None (unsharded) or anything
+    # repro_torch.core.parse_mesh accepts — an int, "sim:N"/"cuda:N", a
+    # DeviceMesh; a mesh runs the ooc-sharded backend.
     mesh: object = None
 
     def make_session(self, backend: str = None, **overrides) -> Session:
         """A Session for this app: ``backend`` (default ``ooc``) with
-        ``overrides`` as ExecutionConfig fields; raises for ``mesh=``."""
+        ``overrides`` as ExecutionConfig fields; ``ooc-sharded`` over
+        the app's ``mesh`` when it has one."""
         return make_session(self.mesh, backend, overrides)
 
     def __post_init__(self):

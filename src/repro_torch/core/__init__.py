@@ -74,6 +74,7 @@ from .store import (
     save_checkpoint,
 )
 from .tune import TuneResult, tune_configs
+from .sharded import ShardedOutOfCoreExecutor, ShardingError
 from .program import (
     ExecutionConfig,
     Session,
@@ -141,6 +142,7 @@ __all__ = [
     "SpillHome", "HaloPack", "HaloExchange", "HaloUnpack", "build_plan",
     "format_plan", "plans_to_json", "plans_from_json",
     "DeviceMesh", "HaloSpec", "MeshError", "ShardGeometry", "parse_mesh",
+    "ShardedOutOfCoreExecutor", "ShardingError",
     "Diagnostic", "VerifyResult", "PlanVerificationError", "verify_plan",
     "verify_plans", "Mutation", "enumerate_mutations", "check_mutations",
     "BackingStore", "RamStore", "MmapStore", "ChunkedStore", "StoreConfig",

@@ -24,10 +24,16 @@ Built-ins:
                 hand-written CUDA kernels in :mod:`repro_torch.kernels`, with
                 the reference path for every untagged loop; ``pallas`` is the
                 same backend under the reference package's name
+``ooc-sharded`` device-mesh execution: the grid decomposed along
+                ``shard_dim`` over ``config.mesh`` (``"sim:N"`` virtual or
+                ``"cuda:N"`` real devices), every shard running the full
+                out-of-core machinery with one accumulated-depth halo
+                exchange per chain (paper §5.2)
 ==============  ===============================================================
 
-The reference's ``ooc-sharded`` backend and multi-device meshes are ROADMAP
-item A10: an ``ooc``-family config with a multi-device mesh raises.
+Any ``ooc``-family backend given a multi-device ``mesh=`` routes through
+the sharded executor (:mod:`repro_torch.core.sharded`) — the mesh is an
+orthogonal axis of the config, not a separate code path.
 
 Register your own with::
 
@@ -186,16 +192,19 @@ def _resident(config):
 
 
 def _ooc_executor(config, **overrides):
-    """The shared ooc-family factory.  A multi-device mesh needs the sharded
-    executor, which is not ported yet."""
+    """The shared ooc-family factory: a plain executor, or — when the config
+    carries a multi-device mesh — the sharded one wrapping a per-device
+    executor per mesh entry."""
     from .executor import OutOfCoreExecutor
+    from .sharded import ShardedOutOfCoreExecutor
 
+    ooc_cfg = config.ooc_config(**overrides)
     mesh = getattr(config, "mesh", None)
     if mesh is not None and mesh.num_devices > 1:
-        raise NotImplementedError(
-            f"mesh {mesh.spec!r}: sharded execution is ROADMAP item A10 of "
-            f"the port")
-    return OutOfCoreExecutor(config.ooc_config(**overrides))
+        return ShardedOutOfCoreExecutor(
+            ooc_cfg, mesh=mesh, shard_dim=config.shard_dim,
+            halo_depth=config.halo_depth)
+    return OutOfCoreExecutor(ooc_cfg)
 
 
 @register_backend("ooc")
@@ -221,3 +230,17 @@ def _ooc_async(config):
 @register_backend("sim")
 def _sim(config):
     return _ooc_executor(config, simulate_only=True)
+
+
+@register_backend("ooc-sharded")
+def _ooc_sharded(config):
+    """Device-mesh execution, explicitly: always the sharded executor, even
+    on a 1-device mesh (where it is bit-identical to ``ooc`` and simply
+    skips decomposition and exchange)."""
+    from .mesh import DeviceMesh
+    from .sharded import ShardedOutOfCoreExecutor
+
+    mesh = getattr(config, "mesh", None) or DeviceMesh.sim(1)
+    return ShardedOutOfCoreExecutor(
+        config.ooc_config(), mesh=mesh, shard_dim=config.shard_dim,
+        halo_depth=config.halo_depth)

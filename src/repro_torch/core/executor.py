@@ -33,9 +33,8 @@ upload and download lanes copy on their own streams beside the compute
 stream, so the paper's three streams are real.  Modelled *timings* still come
 from the calibrated :class:`~repro_torch.core.memory.HardwareModel` ledger.
 
-Ported from ``src/repro/core/executor.py``.  Left out until their ROADMAP
-items land: the serving layer's shared plan cache (A12) and the sharded
-executor's halo hook (A10).
+Ported from ``src/repro/core/executor.py``.  Left out until its ROADMAP
+item lands: the serving layer's shared plan cache (A12).
 """
 from __future__ import annotations
 
@@ -147,7 +146,7 @@ class ChainStats:
     # chunk-cache misses), the FetchHome/SpillHome modelled bytes in sim mode.
     disk_read: int = 0
     disk_written: int = 0
-    # -- device mesh (sharded execution, ROADMAP A10) -------------------------
+    # -- device mesh (repro_torch.core.sharded) --------------------------------
     # Halo-exchange traffic this chain's plan carried (messages/bytes landing
     # in this device's skirts; aggregated over devices by the sharded
     # executor).  Zero for unsharded chains.
@@ -179,9 +178,12 @@ class ChainPlan:
 class OutOfCoreExecutor:
     """Explicitly-managed 3-slot streaming executor (Algorithm 1)."""
 
-    def __init__(self, config: OOCConfig = None):
+    def __init__(self, config: OOCConfig = None, *, device=None):
         self.cfg = config or OOCConfig()
-        self.device = resolve_device(self.cfg.device)
+        # ``device`` overrides ``cfg.device``: the sharded executor of a
+        # ``cuda:N`` mesh shares one config and puts each shard on its card.
+        self.device = resolve_device(device if device is not None
+                                     else self.cfg.device)
         # The upload and download lanes' own CUDA streams; compute runs on
         # the caller's current stream.
         self.streams = ({UP: torch.cuda.Stream(self.device),
@@ -207,6 +209,10 @@ class OutOfCoreExecutor:
             pinned=frozenset(self.cfg.pinned))
         # Cross-chain speculative-prefetch state (shared by both interpreters).
         self._spec = SpecState()
+        # Collective halo-exchange hook: a mesh-owning parent executor
+        # (repro_torch.core.sharded) installs a callable here so this
+        # executor's data-plane interpreter can run HaloExchange ops for real.
+        self.halo_runtime = None
         self.history: List[ChainStats] = []
         # Observability spine (repro_torch.obs): a mesh/serve parent may overwrite
         # both to share one tracer and prefix this executor's tracks.
@@ -221,17 +227,20 @@ class OutOfCoreExecutor:
 
     # -- planning ---------------------------------------------------------------
     def plan_chain(self, loops: Sequence[ParallelLoop],
-                   keep_live: frozenset = frozenset(), *,
-                   warm: frozenset = frozenset()) -> ChainPlan:
+                   keep_live: frozenset = frozenset(),
+                   halo=None, *, warm: frozenset = frozenset()) -> ChainPlan:
         """Analysis + tile scheduling + engine + the lowered Plan IR,
         memoised on the replay-safe ``plan_signature`` (structure, dataset
         identity, kernel fingerprints) plus the planning-relevant config
         knobs.  ``keep_live`` names datasets a split chain's remainder still
         reads (they may not be elided), and is part of the cache key because
         the §4.1 elision decisions are baked into the instruction stream.
-        ``warm`` names write-first dats that must stage anyway — a split
-        chain's head landed real home data the §4.1 upload elision would let
-        the tail's download clobber.
+        ``halo`` (a :class:`~repro_torch.core.mesh.HaloSpec`, sharded
+        execution) stamps the plan with its device-mesh position and places
+        the once-per-chain halo exchange at the head of the op stream.
+        ``warm`` names write-first dats that must stage anyway — a split or
+        segmented chain's earlier part landed real home data the §4.1 upload
+        elision would let this part's download clobber.
         Raises ``MemoryError`` (uncached) when no tile count fits, so
         ``run_chain`` can split."""
         cfg = self.cfg
@@ -239,7 +248,7 @@ class OutOfCoreExecutor:
                cfg.num_slots, float(cfg.capacity), float(cfg.host_budget),
                tuple(sorted(cfg.pinned)), bool(cfg.cyclic),
                bool(cfg.prefetch), cfg.codec_key(), cfg.flops_per_point,
-               tuple(sorted(keep_live)), tuple(sorted(warm)))
+               tuple(sorted(keep_live)), halo, tuple(sorted(warm)))
         plan = self._plans.get(key)
         if plan is not None:
             self._plans.move_to_end(key)
@@ -276,7 +285,7 @@ class OutOfCoreExecutor:
             keep_live=frozenset(keep_live), warm=frozenset(warm),
             pinned_names=pinned_names, codec_spec=cfg.codec,
             flops_per_point=cfg.flops_per_point, slot_bytes=slot_bytes,
-            pinned_bytes=pinned_bytes,
+            pinned_bytes=pinned_bytes, halo=halo,
         )
         # The engine is owned by the plan: it closes over the chain's kernels,
         # and the fingerprint in ``key`` keeps it consistent with them.
@@ -323,7 +332,7 @@ class OutOfCoreExecutor:
     # -- main entry ------------------------------------------------------------
     def run_chain(self, loops: Sequence[ParallelLoop],
                   keep_live: frozenset = frozenset(), *,
-                  plan: Optional[Plan] = None,
+                  plan: Optional[Plan] = None, halo=None,
                   warm: frozenset = frozenset()) -> Dict[str, np.ndarray]:
         """Plan one chain and interpret its instruction stream; if no tile
         count makes its slots fit fast memory (skew span exceeding the grid —
@@ -341,15 +350,18 @@ class OutOfCoreExecutor:
         keeps the whole chain's read-first datasets live in both halves,
         which the reference package's split does not: a split Cyclic chain
         plans differently from the reference's (and returns the reference
-        backend's result where the reference package's loses data)."""
+        backend's result where the reference package's loses data).  The
+        halo exchange (``halo``, sharded execution) happens once at chain
+        start, so the head keeps it; the tail re-reads rows the head already
+        refreshed."""
         try:
-            return self._interpret_chain(loops, keep_live, plan, warm)
+            return self._interpret_chain(loops, keep_live, plan, halo, warm)
         except MemoryError:
             if len(loops) <= 1 or plan is not None:
                 raise
             (head, h_live, h_warm), (tail, t_live, t_warm) = split_chain(
                 loops, keep_live, warm)
-            out = self.run_chain(head, h_live, warm=h_warm)
+            out = self.run_chain(head, h_live, halo=halo, warm=h_warm)
             # Both halves may contribute to the same reduction: combine, not
             # overwrite.
             specs = {r.name: r for lp in loops for r in lp.reductions}
@@ -361,6 +373,7 @@ class OutOfCoreExecutor:
     def _interpret_chain(self, loops: Sequence[ParallelLoop],
                          keep_live: frozenset,
                          ir: Optional[Plan] = None,
+                         halo=None,
                          warm: frozenset = frozenset()
                          ) -> Dict[str, np.ndarray]:
         cfg = self.cfg
@@ -369,7 +382,7 @@ class OutOfCoreExecutor:
         chain_index = len(self.history)
         t_tr0 = tr.clock() if tr.enabled else 0.0
         n_cached = self.plan_hits
-        cp = self.plan_chain(loops, keep_live, warm=warm)
+        cp = self.plan_chain(loops, keep_live, halo, warm=warm)
         cache_hit = self.plan_hits > n_cached
         if ir is None:
             ir = cp.ir
@@ -420,6 +433,7 @@ class OutOfCoreExecutor:
                 ir, cfg.hw, rm=self.residency, spec=self._spec, cp=cp, tx=tx,
                 codecs=resolve_codecs(cfg.codec, tuple(cp.info.datasets)),
                 device=self.device, streams=self.streams,
+                halo_runtime=self.halo_runtime,
                 tracer=tr, trace_tag=self.trace_tag,
                 chain_index=chain_index)
         res = interp.run()
@@ -515,7 +529,7 @@ class OutOfCoreExecutor:
                                 for c in self.history),
             "home_spills": sum(c.op_counts.get("home_spills", 0)
                                for c in self.history),
-            # device mesh: halo-exchange traffic (zero until A10)
+            # device mesh (repro_torch.core.sharded): halo-exchange traffic
             "halo_messages": sum(c.halo_messages for c in self.history),
             "halo_bytes": sum(c.halo_bytes for c in self.history),
             # per-lane queue-wait / service-time histograms straight from the

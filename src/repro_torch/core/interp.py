@@ -631,6 +631,7 @@ class DataPlaneInterpreter(LedgerInterpreter):
                  tx: Any, codecs: Dict[str, Any],
                  device: torch.device,
                  streams: Optional[Dict[str, Any]] = None,
+                 halo_runtime: Optional[Callable[[HaloExchange], None]] = None,
                  tracer: Optional[AnyTracer] = None,
                  trace_tag: str = "",
                  chain_index: int = 0):
@@ -650,6 +651,7 @@ class DataPlaneInterpreter(LedgerInterpreter):
         if self.cuda and streams is None:
             raise ValueError("a CUDA data plane needs its upload/download streams")
         self.streams = streams
+        self.halo_runtime = halo_runtime
         self.compute_stream: Any = None
         self.alloc_event: Any = None
         self.patches: List[Tuple[int, Any, str]] = []
@@ -826,9 +828,8 @@ class DataPlaneInterpreter(LedgerInterpreter):
 
     # -- the network stream ---------------------------------------------------
     def exec_halo_exchange(self, op: HaloExchange) -> None:
-        raise NotImplementedError(
-            "halo exchanges on the data plane need the sharded executor "
-            "(ROADMAP A10)")
+        if self.halo_runtime is not None:
+            self.halo_runtime(op)
 
     # -- the disk tier (real store traffic on the third worker lane) ----------
     def stage_fetch_home(self, op: FetchHome) -> Optional[int]:

@@ -27,9 +27,9 @@ Ported from ``src/repro/core/program.py``.  ``ExecutionConfig`` gains
 ``device`` (``"cuda"`` by default; it raises where there is no CUDA, and the
 CPU must be asked for).  Stencil inference traces kernels against torch CPU
 tensors.  ``fetch``/``reduction`` still return NumPy, like the reference's
-public API.  Not ported yet, and raising ``NotImplementedError`` that names
-their ROADMAP items: sharded meshes (A10, and with them ``tune``'s
-``meshes=`` grid) and server sessions (A12).  The reference's deprecated
+public API.  ``mesh=`` runs the sharded executor (``sim:N`` virtual or
+``cuda:N`` real devices, :mod:`repro_torch.core.sharded`).  Not ported yet:
+server sessions (ROADMAP A12).  The reference's deprecated
 ``Runtime`` shims are not carried over.  ``close()`` also flushes and closes
 the disk-backed homes (``mmap``/``chunked``) the session has seen.
 """
@@ -96,11 +96,15 @@ class ExecutionConfig:
     # Host-RAM budget for dataset home copies; chains whose working set
     # exceeds it plan FetchHome/SpillHome ops against the disk-backed stores.
     host_capacity: Optional[float] = None    # default: hw.host_capacity
-    # -- device mesh (repro_torch.core.mesh) ------------------------------------
-    # A DeviceMesh, an int (virtual sim:N mesh) or a "sim:N" spec.  A
-    # multi-device mesh raises until the sharded executor is ported (ROADMAP
-    # A10), and with it the reference's ``shard_dim``/``halo_depth``.
+    # -- device mesh (repro_torch.core.mesh / repro_torch.core.sharded) -------
+    # Grid decomposition along ``shard_dim``: a DeviceMesh, an int (virtual
+    # sim:N mesh) or a "sim:N"/"cuda:N" spec.  Any ooc-family backend with a
+    # multi-device mesh routes through the sharded executor; ``halo_depth``
+    # bounds the redundant-compute skirt (rows per interior side; default:
+    # auto from the shard width).
     mesh: Union[None, int, str, "DeviceMesh"] = None  # noqa: F821
+    shard_dim: int = 1
+    halo_depth: Optional[int] = None
     # -- static verification (repro_torch.core.verify) ----------------------
     # Verify every plan before interpreting it; error-severity diagnostics
     # raise PlanVerificationError instead of executing a corrupting stream.
@@ -577,15 +581,16 @@ class Session:
     def _planning_executor(self):
         """The OOC executor that builds Plan IRs for this session's backend."""
         from .executor import OutOfCoreExecutor, ResidentExecutor
+        from .sharded import ShardedOutOfCoreExecutor
 
         be = self.backend
-        if isinstance(be, OutOfCoreExecutor):
+        if isinstance(be, (OutOfCoreExecutor, ShardedOutOfCoreExecutor)):
             return be
         if isinstance(be, ResidentExecutor):
             return be._inner
         raise ValueError(
             f"backend {type(be).__name__} does not build plans; use an "
-            f"ooc/ooc-async/ooc-cyclic/sim/resident session")
+            f"ooc/ooc-async/ooc-cyclic/ooc-sharded/sim/resident session")
 
     def plan(self, loops=None):
         """Lower the queued loops (or ``loops``) to their Plan IRs *without*
@@ -613,9 +618,12 @@ class Session:
         split_chain`, which keeps the whole chain's read-first datasets live
         in both halves; the reference package's split does not, so split
         Cyclic plans differ from its plans on purpose (unsplit chains plan
-        byte-equal)."""
+        byte-equal).  Sharded backends plan per device (segments x shards,
+        splitting each shard's segment the same way): their chain plans
+        carry a tuple of device-annotated Plan IRs, flattened here."""
         try:
-            return [ex.plan_chain(loops, keep_live, warm=warm).ir]
+            ir = ex.plan_chain(loops, keep_live, warm=warm).ir
+            return list(ir) if isinstance(ir, tuple) else [ir]
         except MemoryError:
             if len(loops) <= 1:
                 raise
@@ -629,8 +637,10 @@ class Session:
         without executing anything.  Returns a
         :class:`~repro_torch.core.verify.VerifyResult` — every chain's stream
         is abstract-interpreted for residency/dirty-loss/halo soundness and
-        transfer-lane ordering.  ``session.verify().ok`` is the
-        machine-checkable answer to "will this step's plans corrupt data"."""
+        transfer-lane ordering, and on a sharded session the per-device
+        plans are cross-checked for exchange consistency.
+        ``session.verify().ok`` is the machine-checkable answer to "will
+        this step's plans corrupt data"."""
         from .verify import verify_plans
 
         return verify_plans(self.plan(loops))
@@ -639,7 +649,9 @@ class Session:
         """Human-readable per-tile op listing for the queued loops (or
         ``loops``): staging/compute/carry/download per tile with modelled
         bytes, op totals, and the ledger-modelled makespan per chain —
-        the same text the reference prints for the same plans.  With
+        the same text the reference prints for the same plans.  On a
+        sharded session every device's stream is listed (with its halo ops
+        and per-device makespan), followed by a mesh summary line.  With
         ``verify=True`` the static verifier's diagnostic summary is
         appended."""
         from .plan import format_plan
@@ -649,8 +661,39 @@ class Session:
             return "(nothing queued: record loops before explain())"
         hw = self.config.hw if self.config is not None else getattr(
             getattr(self.backend, "cfg", None), "hw", None)
-        blocks = [format_plan(p, hw, title=f"chain {i}/{len(plans)}")
-                  for i, p in enumerate(plans)]
+        from .interp import simulate_plan
+
+        per_dev: Dict[int, float] = {}
+        msgs = nbytes = 0
+        blocks = []
+        for i, p in enumerate(plans):
+            title = (f"chain {i}/{len(plans)}"
+                     + (f" · device {p.device}/{p.mesh_devices}"
+                        if p.mesh_devices > 1 else ""))
+            if p.mesh_devices > 1 and hw is not None:
+                # Simulate once: the per-plan makespan line and the mesh
+                # summary share the same result.
+                res = simulate_plan(p, hw)
+                bw = (p.loop_bytes / res.makespan / 1e9
+                      if res.makespan else 0.0)
+                blocks.append(
+                    format_plan(p, None, title=title)
+                    + f"\n  modelled makespan (device {p.device}, "
+                    f"{hw.name}): {res.makespan * 1e3:.3f} ms"
+                    f"  ({bw:.1f} GB/s avg)")
+                per_dev[p.device] = per_dev.get(p.device, 0.0) + res.makespan
+                tot = p.totals()
+                msgs += tot["halo_messages"]
+                nbytes += tot["halo_bytes"]
+            else:
+                blocks.append(format_plan(p, hw, title=title))
+        if per_dev:
+            devs = " ".join(f"d{d}={t * 1e3:.3f}ms"
+                            for d, t in sorted(per_dev.items()))
+            blocks.append(
+                f"mesh summary: per-device makespans {devs}; critical "
+                f"device {max(per_dev.values()) * 1e3:.3f} ms; halo "
+                f"{msgs} msgs / {nbytes / 1e6:.3f} MB")
         if verify:
             from .verify import verify_plans
 
@@ -666,8 +709,8 @@ class Session:
         worse than this session's config, which is always a candidate.  With
         ``apply=True`` the session's backend is rebuilt around the winner
         (the queue survives: loops reference datasets, not the backend).  A
-        ``meshes=`` grid with a multi-device candidate raises
-        ``NotImplementedError`` (sharded execution is ROADMAP A10)."""
+        ``meshes=`` grid costs sharded candidates with their per-device
+        streams and halo ops."""
         from .tune import tune_configs
 
         loops = list(self.queue) if loops is None else list(loops)
@@ -704,7 +747,12 @@ class Session:
         self.flush()
         dats = list(datasets) if datasets is not None else list(
             self.datasets.values())
-        plans = getattr(self.backend, "_plans", {}).values()
+        # Sharded backends keep their plan caches on the per-device inner
+        # executors — aggregate so multi-device checkpoints carry the same
+        # plan-signature provenance as unsharded ones.
+        plans = list(getattr(self.backend, "_plans", {}).values())
+        for ex in getattr(self.backend, "inner", ()):
+            plans.extend(getattr(ex, "_plans", {}).values())
         sigs = [cp.ir.sig_hash for cp in plans
                 if getattr(cp, "ir", None) is not None]
         return save_checkpoint(path, dats,

@@ -16,12 +16,9 @@ lossless ``shuffle-rle`` codec is data-dependent (nominal 1.0), which the
 byte-level model cannot see — pick it from a real :func:`transfer_bench`
 measurement instead.
 
-Ported from ``src/repro/core/tune.py``.  One difference: a ``meshes=``
-candidate with more than one device needs the sharded executor (ROADMAP
-A10), so building it raises ``NotImplementedError`` out of
-:func:`tune_configs` instead of being scored as infeasible, which would
-quietly change the winner.  The serving layer's shared plan cache (A12) is
-not ported, so :func:`make_sim_executor` takes no ``shared_plans``.
+Ported from ``src/repro/core/tune.py``.  The serving layer's shared plan
+cache (A12) is not ported, so :func:`make_sim_executor` takes no
+``shared_plans``.
 """
 from __future__ import annotations
 
@@ -76,10 +73,11 @@ def split_chains(loops: Sequence[ParallelLoop]) -> List[List[ParallelLoop]]:
 
 
 def make_sim_executor(config):
-    """A throwaway ledger-only executor for ``config``.  Delegates to the
-    backend registry's factory so the tuner can never cost a different
-    executor shape than ``make_backend`` would construct — which raises
-    ``NotImplementedError`` for a multi-device mesh (ROADMAP A10)."""
+    """A throwaway ledger-only executor for ``config`` — sharded when the
+    config carries a multi-device mesh, so the tuner's shard-count
+    candidates are costed with their per-device streams and halo ops.
+    Delegates to the backend registry's factory so the tuner can never cost
+    a different executor shape than ``make_backend`` would construct."""
     from .backends import _ooc_executor
 
     return _ooc_executor(config, simulate_only=True, transfer="sync")
@@ -200,8 +198,7 @@ def tune_configs(
         except (MemoryError, MeshError):
             # MemoryError: no tile count fits fast memory.  MeshError: the
             # grid cannot be decomposed that way (too many devices, skirt
-            # exceeding the shard width).  A multi-device mesh raises
-            # NotImplementedError (ROADMAP A10), which is not caught here.
+            # exceeding the shard width).
             t = float("inf")
             feasible = False
         rows.append({

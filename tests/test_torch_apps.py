@@ -214,23 +214,27 @@ def test_opensbli_24_loops_per_step():
 # -- knobs the port has not ported, and where tensors are made ------------------
 
 
-@pytest.mark.parametrize("make, err", [
-    (lambda tmp: TA.CloverLeaf2D(16, 16, mesh=2).make_session(), NotImplementedError),
-    (lambda tmp: TA.CloverLeaf3D(8, 8, 8, mesh="sim:2").make_session(),
-     NotImplementedError),
-    (lambda tmp: TA.OpenSBLI(8, mesh=2).make_session(), NotImplementedError),
+def _sharded(sess):
+    return (isinstance(sess.backend, T.ShardedOutOfCoreExecutor)
+            and sess.config.backend == "ooc-sharded"
+            and sess.backend.mesh.num_devices == 2)
+
+
+@pytest.mark.parametrize("make, holds", [
+    (lambda tmp: TA.CloverLeaf2D(16, 16, mesh=2).make_session(device="cpu"),
+     _sharded),
+    (lambda tmp: TA.CloverLeaf3D(8, 8, 8, mesh="sim:2").make_session(device="cpu"),
+     _sharded),
+    (lambda tmp: TA.OpenSBLI(8, mesh=2).make_session(device="cpu"), _sharded),
     (lambda tmp: TA.CloverLeaf2D(16, 16, store=T.StoreConfig(
-        kind="mmap", directory=str(tmp))), None),
+        kind="mmap", directory=str(tmp))),
+     lambda app: {d.store.kind for d in app.dats.values()} == {"mmap"}),
 ], ids=["cl2d-mesh", "cl3d-mesh", "opensbli-mesh", "cl2d-mmap"])
-def test_unported_app_knobs_raise(make, err, tmp_path):
-    """``mesh=`` (ROADMAP A10) raises; ``store="mmap"`` (``err`` None) has
-    been ported with the disk tier and now gives every home an mmap store."""
-    if err is None:
-        app = make(tmp_path)
-        assert {d.store.kind for d in app.dats.values()} == {"mmap"}
-        return
-    with pytest.raises(err, match="ROADMAP"):
-        make(tmp_path)
+def test_unported_app_knobs_raise(make, holds, tmp_path):
+    """The app knobs that were once unported now work: ``mesh=`` builds an
+    ``ooc-sharded`` Session over that mesh (sharded execution, ported after
+    it raised here), and ``store="mmap"`` gives every home an mmap store."""
+    assert holds(make(tmp_path))
 
 
 def test_run_is_init_then_run_steps():

@@ -239,27 +239,38 @@ def _checkpoint(tmp):
     return manifest["format"] == 1 and list(manifest["datasets"]) == ["u"]
 
 
+def _sharded_session(tmp):
+    sess = T.Session("ooc", device="cpu", mesh=2)
+    return isinstance(sess.backend, T.ShardedOutOfCoreExecutor)
+
+
+def _sharded_tune(tmp):
+    rows = _queued_heat()[0].tune(meshes=[1, 2]).rows
+    return {r["mesh"] for r in rows} == {None, "sim:2"}
+
+
 @pytest.mark.parametrize("call, err", [
-    (lambda tmp: T.Session("ooc", device="cpu", mesh=2), NotImplementedError),
+    (_sharded_session, None),
     (lambda tmp: T.Session("ooc", device="cpu", mesh="jax:2"), T.MeshError),
     (_debug_verifies, None),
     (lambda tmp: _queued_heat()[0].verify().ok, None),
-    (lambda tmp: _queued_heat()[0].tune(meshes=[1, 2]), NotImplementedError),
+    (_sharded_tune, None),
     (_checkpoint, None),
     (lambda tmp: T.make_dataset(T.Block("g", (4, 4)), "u", store=T.StoreConfig(
         kind="mmap", directory=str(tmp))).store.kind == "mmap", None),
 ], ids=["mesh", "jax-mesh", "debug", "verify", "tune", "checkpoint", "mmap"])
 def test_unported_features_raise(call, err, tmp_path):
-    """What the port leaves to ROADMAP A10 (sharded meshes, and with them
-    ``tune``'s ``meshes=`` grid) raises, naming the item.  The features that
-    were unported before the disk tier and the plan tools landed (``err``
-    None) now run and return True: ``debug`` verifies the plan before it
+    """The reference's ``jax:N`` mesh has no counterpart and raises a
+    ``MeshError`` that names ``cuda:N``.  The features that were unported
+    before (``err`` None) now run and return True: a multi-device ``mesh``
+    routes an ``ooc`` Session to the sharded executor, ``tune``'s
+    ``meshes=`` grid costs ``sim:2``, ``debug`` verifies the plan before it
     runs, ``verify`` finds it clean, ``checkpoint`` writes a format-1
     manifest, ``mmap`` gives the dataset an mmap home."""
     if err is None:
         assert call(tmp_path) is True
         return
-    with pytest.raises(err, match="ROADMAP|port"):
+    with pytest.raises(err, match="cuda:N"):
         call(tmp_path)
 
 

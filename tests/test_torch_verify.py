@@ -2,7 +2,8 @@
 the JAX package's.
 
 Every app plan at ``tests/test_verify.py``'s sizes (CloverLeaf 2D/3D and
-OpenSBLI, ram and spill tiers, no mesh) is byte-equal between the packages
+OpenSBLI, ram and spill tiers, no mesh and ``sim:4``) is byte-equal between
+the packages
 and gets the same diagnostics from both verifiers, clean and under every
 fuzzer mutation.  The port's split Cyclic plans, which differ from the JAX
 package's on purpose (``repro_torch/core/dependency.py::split_chain``), verify
@@ -32,11 +33,13 @@ def _kw(pkg):
     return {"device": "cpu"} if pkg is T else {}
 
 
-def _app_plans(pkg, apps, app_name, tier):
-    """``tests/test_verify.py::_app_plans`` with ``mesh=None``, on the
-    ``p100-pcie`` model in both packages."""
+def _app_plans(pkg, apps, app_name, tier, mesh=None):
+    """``tests/test_verify.py::_app_plans``, on the ``p100-pcie`` model in
+    both packages."""
     app = APPS[app_name](apps)
     kw = {"num_tiles": 4, **_kw(pkg)}
+    if mesh:
+        kw["mesh"] = mesh
     if tier == "spill":
         kw["hw"] = pkg.P100_PCIE.with_(host_capacity=app.total_bytes() * 0.4)
     else:
@@ -55,16 +58,18 @@ def _diags(result):
              d.interval, d.plan_index) for d in result.diagnostics]
 
 
-@pytest.fixture(scope="module", params=[(a, t) for a in APPS for t in ("ram", "spill")],
-                ids=lambda p: f"{p[0]}-{p[1]}")
+@pytest.fixture(scope="module",
+                params=[(a, t, m) for a in APPS for t in ("ram", "spill")
+                        for m in (None, "sim:4")],
+                ids=lambda p: f"{p[0]}-{p[1]}" + (f"-{p[2]}" if p[2] else ""))
 def app_plans(request):
-    app_name, tier = request.param
-    return (T.plans_to_json(_app_plans(T, TA, app_name, tier)),
-            J.plans_to_json(_app_plans(J, JA, app_name, tier)), tier)
+    app_name, tier, mesh = request.param
+    return (T.plans_to_json(_app_plans(T, TA, app_name, tier, mesh)),
+            J.plans_to_json(_app_plans(J, JA, app_name, tier, mesh)), tier, mesh)
 
 
 def test_app_plans_verify_clean_and_equal_jax(app_plans):
-    port_json, jax_json, tier = app_plans
+    port_json, jax_json, tier, mesh = app_plans
     assert port_json == jax_json          # unsplit chains plan byte-equal
     port = T.verify_plans(T.plans_from_json(port_json))
     ref = J.verify_plans(J.plans_from_json(port_json))
@@ -72,7 +77,10 @@ def test_app_plans_verify_clean_and_equal_jax(app_plans):
     assert _diags(port) == _diags(ref)
     assert port.summary() == ref.summary()
     plans = T.plans_from_json(port_json)
-    assert all(p.spill_home for p in plans) is (tier == "spill")
+    # A sim:4 shard's homes are a quarter of the app's: under the spill
+    # tier's host budget (0.4 of the homes), so only unsharded plans spill.
+    assert all(p.spill_home for p in plans) is (tier == "spill" and not mesh)
+    assert all(p.mesh_devices == (4 if mesh else 1) for p in plans)
 
 
 def test_mutant_diagnostics_equal_jax(app_plans):
@@ -222,11 +230,17 @@ def test_tune_apply_rebuilds_the_backend():
 
 
 def test_tune_mesh_grid_raises_for_sharding():
-    """A multi-device candidate needs the sharded executor (ROADMAP A10):
-    it raises rather than being scored as infeasible."""
+    """A multi-device candidate runs the sharded executor: the grid costs
+    ``sim:2`` beside the unsharded config, with the JAX package's rows and
+    winner.  (It raised before sharded execution was ported.)"""
+    grid = dict(num_tiles=(16,), num_slots=(3,), tiled_dims=(0,), meshes=[1, 2])
     sess, _ = _tune(T, num_tiles=(16,), num_slots=(3,), tiled_dims=(0,))
-    with pytest.raises(NotImplementedError, match="A10"):
-        sess.tune(num_tiles=(16,), num_slots=(3,), tiled_dims=(0,), meshes=[1, 2])
+    got = sess.tune(**grid)
+    jsess, _ = _tune(J, num_tiles=(16,), num_slots=(3,), tiled_dims=(0,))
+    want = jsess.tune(**grid)
+    assert {r["mesh"] for r in got.rows} == {None, "sim:2"}
+    assert got.rows == want.rows
+    assert got.best_makespan == want.best_makespan
 
 
 # -- Session.verify, explain(verify=True) and debug mode --------------------------
