@@ -9,6 +9,7 @@
     python3 chip_smoke.py --disk     # only phase 8 and the CloverLeaf 2D runs
                                      # of phase 7 it is held against
     python3 chip_smoke.py --mesh     # only phase 9 and the same two runs
+    python3 chip_smoke.py --serve    # only phase 10 and the same two runs
 
 Phases, each of which asserts (any failure exits non-zero):
 
@@ -87,10 +88,31 @@ Phases, each of which asserts (any failure exits non-zero):
    ``torch.equal`` to the CPU, timed beside its bound; and a ``cuda:N``
    mesh bit for bit against ``sim:N`` where the machine has two or more
    cards (else a ``mesh_cuda`` record says it did not run).  Every phase 9
-   record carries the card's ``nvidia-smi`` name and power limit.
+   record carries the card's ``nvidia-smi`` name and power limit;
+10. serving — four CloverLeaf 2D tenants at phase 7's size (4 x 6.72 GB of
+   pinned homes), each run from its own thread through one
+   ``repro_torch.serve.StencilServer("sim:2")``: two lanes on the card,
+   each computing on its own stream, ``sjf``, priorities 0, 1, 0, 1,
+   phase 7's ``hw``, capacity and prefetch, traced, the plans shared
+   through the server's cache; tenant ``t0`` is preempted after its second
+   chain (a checkpoint under ``build/spill/serve``, deleted at the end,
+   then a restore, possibly on the other lane); auto-preemption is off.
+   Every tenant's homes and summaries bit-identical to phase 7's ``ooc``
+   run, at least one preemption, no rejection, peak device memory below
+   the four tenants' homes, every span a lane's, a tenant's or a lease
+   (the admission oracle untraced), no hand-written kernel launched.
+   Records: the served wall beside four phase 7 ``ooc`` walls, planning
+   seconds over the lanes and the oracle, the plan cache's counters, per
+   tenant its queue wait, predicted and achieved modelled seconds and
+   lanes, per lane its lease seconds and compute device seconds (CUDA
+   event spans), checkpoint and restore seconds, pinned host bytes, each
+   tenant's last ``dt`` in hex, and the drift audit of lane 0's largest
+   chain.  With two or more cards the four tenants also run at 512^2 on
+   ``cuda:2``, bit for bit against ``sim:2`` (else a ``serve_cuda``
+   record says it did not run).
 
 Every line but the last two is a JSON record.  The line before the last
-JSON ``ok`` line lists every ported kernel (phases 7, 8 and 9 launch none of
+JSON ``ok`` line lists every ported kernel (phases 7 to 10 launch none of
 them: the apps' loops are torch ops); the card's ``nvidia-smi`` name and power
 limit are printed on their own line before it.  The script
 imports nothing of JAX or of the JAX package.
@@ -107,6 +129,7 @@ import tempfile
 import statistics
 import subprocess
 import sys
+import threading
 import time
 from pathlib import Path
 
@@ -120,6 +143,7 @@ from repro_torch.core import ReductionSpec, Session, datasets_from_numpy  # noqa
 from repro_torch.core import Block  # noqa: E402
 from repro_torch.kernels import build, ops, ref  # noqa: E402
 from repro_torch.kernels import star2d_kernel, star3d_kernel  # noqa: E402
+from repro_torch.obs import compare as drift_compare  # noqa: E402
 
 # Published H100 SXM peaks at 700 W (NVIDIA data sheet): HBM bandwidth and
 # float32 arithmetic outside the tensor cores.  The sweeps accumulate in fp32.
@@ -1213,6 +1237,240 @@ def mesh_phase(n: int, baseline: dict, smi: str, steps: int = 4, reps: int = 20)
     emit(phase="mesh_done", seconds=time.perf_counter() - t_phase, card=smi)
 
 
+# -- phase 10: serving --------------------------------------------------------------
+
+
+def mem_available() -> int:
+    """The host's available memory in bytes (/proc/meminfo)."""
+    for ln in Path("/proc/meminfo").read_text().splitlines():
+        if ln.startswith("MemAvailable:"):
+            return int(ln.split()[1]) * 1024
+    raise RuntimeError("no MemAvailable in /proc/meminfo")
+
+
+def release_pinned_cache() -> None:
+    """Hand the free blocks of PyTorch's caching host allocator back to the
+    OS.  It rounds each page-locked allocation up to a power of two (a
+    268.7 MB home takes 512 MiB) and keeps freed blocks for reuse, so the
+    blocks of earlier phases' sizes would stay locked beside phase 10's
+    four tenants (the whole script ran out of the host's 96 GiB without
+    this)."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    empty = getattr(getattr(torch, "accelerator", None), "empty_host_cache", None)
+    (empty or torch._C._host_emptyCache)()
+
+
+SERVE_SPILL = SPILL_ROOT / "serve"
+SERVE_PRIORITIES = (0, 1, 0, 1)
+
+
+def serve_tenants(n: int, mesh: str, cap: float, steps: int, spill: Path,
+                  preempt: bool) -> dict:
+    """Four CloverLeaf 2D tenants at an n^2 interior, each run from its own
+    thread through one ``StencilServer`` on ``mesh`` (lanes on the card,
+    ``sjf``, phase 7's ``hw``, capacity and prefetch; traced), with
+    priorities 0, 1, 0, 1.  With ``preempt``, tenant ``t0`` is preempted
+    after its second chain (it checkpoints under ``spill``, re-queues and
+    restores).  The server is closed and the homes dropped before this
+    returns; their digests, summaries and the server's records come back."""
+    from repro_torch.apps import CloverLeaf2D
+    from repro_torch.serve import StencilServer
+
+    release_pinned_cache()
+    host = {"before": mem_available()}
+    apps = [CloverLeaf2D(n, n, summary_every=2) for _ in SERVE_PRIORITIES]
+    for app in apps:
+        for d in app.dats.values():
+            d.pin()
+    pinned = sum(d.nbytes for app in apps for d in app.dats.values()
+                 if d.store.tensor().is_pinned())
+    host["pinned"] = mem_available()
+    summaries, errors = {}, []
+    # Auto-preemption is off: with these priorities on two lanes it flags a
+    # running priority-0 tenant whenever a priority-1 one waits (7 times in
+    # a rehearsal on the CPU), each a checkpoint of all of its homes.
+    server = StencilServer(mesh, device="cuda", policy="sjf", hw="p100-pcie",
+                           capacity_bytes=cap, prefetch=True, trace=True,
+                           spill_dir=str(spill), auto_preempt=False)
+    try:
+        sessions = [server.session(f"t{i}", priority=p)
+                    for i, p in enumerate(SERVE_PRIORITIES)]
+
+        def tenant(i: int) -> None:
+            try:
+                rt = sessions[i]
+                if preempt and i == 0:
+                    run_chain, done = rt._run, []
+
+                    def counted(chain):
+                        run_chain(chain)
+                        done.append(1)
+                        if len(done) == 2:
+                            server.preempt("t0")
+                    rt._run = counted
+                summaries[i] = apps[i].run(rt, steps=steps)
+                rt.close()
+            except Exception as e:  # checked after the join
+                errors.append((i, repr(e)))
+
+        for ops_fn in (ops.stencil2d, ops.stencil3d, ops.chain2d):
+            ops_fn.launches = 0
+        threads = [threading.Thread(target=tenant, args=(i,))
+                   for i in range(len(apps))]
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(900)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        host["served"] = mem_available()
+        check(not any(t.is_alive() for t in threads), "every tenant thread finished")
+        check(not errors, f"tenant failures: {errors}")
+        launches = {"stencil2d": ops.stencil2d.launches,
+                    "stencil3d": ops.stencil3d.launches,
+                    "chain2d": ops.chain2d.launches}
+        peak = torch.cuda.max_memory_allocated() - base
+        stats = server.stats()
+        tracer = server.tracer
+        spans = tracer.spans()
+        lanes = server.lanes
+        out = {"wall_s": wall, "peak_device_bytes": peak, "pinned_host_bytes": pinned,
+               "host_mem_available": host,
+               "stats": stats, "spans": spans, "launches": launches,
+               "dropped_spans": tracer.dropped,
+               "plan_s": {"lanes": [lane.plan_time_s for lane in lanes],
+                          "oracle": server.oracle.plan_time_s},
+               "lane_chains": [len(lane.history) for lane in lanes],
+               "summaries": [summaries[i] for i in range(len(apps))],
+               "dt": [app.dt.hex() for app in apps],
+               "digests": [{k: hashlib.sha1(memoryview(np.ascontiguousarray(
+                   d.materialize()))).hexdigest() for k, d in app.dats.items()}
+                   for app in apps]}
+        # The drift audit of lane 0's largest chain (a timestep chain).
+        ledgers = lanes[0].ledgers
+        if ledgers:
+            k = max(range(len(lanes[0].history)),
+                    key=lambda j: lanes[0].history[j].loop_bytes)
+            rep = drift_compare(ledgers[k], tracer, chain=k, tag="lane0/")
+            out["drift_lane0"] = {
+                "chain": k, "tiles": lanes[0].history[k].num_tiles,
+                "streams": {sd.name: {"ratio": sd.ratio, "matched": sd.matched,
+                                      "events": sd.events,
+                                      "achieved_s": sd.achieved_s,
+                                      "modelled_s": sd.modelled_s}
+                            for sd in rep.streams.values()}}
+    finally:
+        server.close()
+        del apps
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def serve_record(run: dict, smi: str) -> dict:
+    """Phase 10's records from one served run: per tenant its admission
+    seconds (the oracle plans there, under its lock), queue wait, predicted
+    and achieved modelled seconds and the lanes its chains ran on; per lane its lease seconds and compute device seconds (the CUDA
+    event spans); the preemption's checkpoint and restore seconds."""
+    spans, stats = run["spans"], run["stats"]
+    n_lanes = stats.lanes
+    lease = [s for s in spans if s.cat == "lease"]
+    tenants = {}
+    for name, t in sorted(stats.tenants.items()):
+        tenants[name] = {
+            "priority": t.priority, "chains": t.chains,
+            "queue_wait_s": t.queue_wait_s, "predicted_s": t.predicted_s,
+            "achieved_modelled_s": t.achieved_modelled_s,
+            "predicted_vs_achieved": t.predicted_vs_achieved,
+            "preemptions": t.preemptions, "plan_hits": t.plan_hits,
+            "admit_s": sum(s.t_end - s.t_start for s in spans
+                           if s.name == "admit" and s.track == f"tenant/{name}"),
+            "lanes": [s.args["lane"] for s in sorted(lease, key=lambda s: s.t_start)
+                      if s.name == name]}
+    serve_s = {k: [s.t_end - s.t_start for s in spans if s.name == k]
+               for k in ("preempt-checkpoint", "preempt-restore")}
+    return {
+        "wall_s": run["wall_s"], "peak_device_bytes": run["peak_device_bytes"],
+        "pinned_host_bytes": run["pinned_host_bytes"],
+        "host_mem_available": run["host_mem_available"],
+        "plan_s": run["plan_s"],
+        "plan_s_total": sum(run["plan_s"]["lanes"]) + run["plan_s"]["oracle"],
+        "plan_cache": stats.plan_cache, "jobs_completed": stats.jobs_completed,
+        "jobs_rejected": stats.jobs_rejected, "preemptions": stats.preemptions,
+        "lane_chains": run["lane_chains"], "tenants": tenants,
+        "lease_s": [sum(s.t_end - s.t_start for s in lease if s.track == f"lane{i}")
+                    for i in range(n_lanes)],
+        "compute_device_s": [sum(s.args["device_s"] for s in spans
+                                 if s.track == f"lane{i}/compute"
+                                 and "device_s" in (s.args or {}))
+                             for i in range(n_lanes)],
+        "checkpoint_s": serve_s["preempt-checkpoint"],
+        "restore_s": serve_s["preempt-restore"],
+        "dt_hex": run["dt"], "dropped_spans": run["dropped_spans"],
+        "drift_lane0": run.get("drift_lane0"), "launches": run["launches"],
+        "card": smi}
+
+
+def serve_phase(n: int, baseline: dict, smi: str, steps: int = 4,
+                n_cuda: int = 512) -> None:
+    """Four CloverLeaf 2D tenants at an n^2 interior served on ``sim:2``
+    (two lanes sharing the card) at phase 7's capacity, ``t0`` preempted
+    after its second chain.  Every tenant's homes and summaries are held
+    against phase 7's ``ooc`` run (``baseline``), bit for bit.  With two or
+    more cards the same four tenants run at ``n_cuda``^2 on ``cuda:2``,
+    bit for bit against ``sim:2`` at that size."""
+    t_phase = time.perf_counter()
+    homes = 25 * (n + 4) ** 2 * 4
+    cap = homes / 3
+    SERVE_SPILL.mkdir(parents=True, exist_ok=True)
+    free = shutil.disk_usage(SERVE_SPILL).free
+    check(free >= homes, f"{SERVE_SPILL} has {free} bytes free; the preemption "
+          f"checkpoint needs {homes}")
+    try:
+        run = serve_tenants(n, "sim:2", cap, steps, SERVE_SPILL, preempt=True)
+        rec = serve_record(run, smi)
+        ooc = baseline["ooc"]
+        for i, (digests, summary) in enumerate(zip(run["digests"], run["summaries"])):
+            check(digests == ooc["digests"] and summary == ooc["summary"],
+                  f"tenant t{i} is bit-identical to phase 7's ooc run")
+        check(rec["preemptions"] >= 1, f"preemptions {rec['preemptions']}")
+        check(rec["jobs_rejected"] == 0, f"jobs rejected {rec['jobs_rejected']}")
+        check(run["peak_device_bytes"] < 4 * homes,
+              f"peak {run['peak_device_bytes']} B not below the four tenants' homes")
+        check(all(s.track.startswith(("lane", "tenant/")) or s.cat == "lease"
+                  for s in run["spans"]), "every span is a lane's, a tenant's or a lease")
+        check(rec["dropped_spans"] == 0, "the tracer kept every span")
+        check(all(v == 0 for v in rec["launches"].values()),
+              f"the serve path launches no hand-written kernel: {rec['launches']}")
+        emit(phase="serve", app="cloverleaf2d", mesh="sim:2",
+             policy="sjf", interior=[n, n], steps=steps, home_bytes_per_tenant=homes,
+             capacity_bytes=cap, bit_identical_to_phase7_ooc=True,
+             sum_of_alone_ooc_wall_s=4 * ooc["wall_s"],
+             served_over_alone=rec["wall_s"] / (4 * ooc["wall_s"]), **rec)
+        del run
+        count = torch.cuda.device_count()
+        if count < 2:
+            emit(phase="serve_cuda", ran=False, devices=count, card=smi)
+        else:
+            cap_s = 25 * (n_cuda + 4) ** 2 * 4 / 3
+            want = serve_tenants(n_cuda, "sim:2", cap_s, steps, SERVE_SPILL, preempt=False)
+            got = serve_tenants(n_cuda, "cuda:2", cap_s, steps, SERVE_SPILL, preempt=False)
+            check(got["digests"] == want["digests"] and got["summaries"] == want["summaries"],
+                  "cuda:2 lanes are bit-identical to sim:2")
+            emit(phase="serve_cuda", ran=True, devices=count, mesh="cuda:2",
+                 interior=[n_cuda, n_cuda], bit_identical_to_sim=True,
+                 **serve_record(got, smi))
+        emit(phase="serve_done", seconds=time.perf_counter() - t_phase, card=smi)
+    finally:
+        shutil.rmtree(SERVE_SPILL, ignore_errors=True)
+
+
 def profile_phase(n: int, steps: int) -> None:
     """The out-of-core path once more per backend, with the span tracer on
     and torch.profiler around the replayed round's flush: host time by plan
@@ -1275,6 +1533,8 @@ def main() -> int:
                     help="only phase 8 and its phase 7 baselines (no result line)")
     ap.add_argument("--mesh", action="store_true",
                     help="only phase 9 and its phase 7 baselines (no result line)")
+    ap.add_argument("--serve", action="store_true",
+                    help="only phase 10 and its phase 7 baselines (no result line)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on a GPU",
@@ -1295,6 +1555,9 @@ def main() -> int:
     if args.mesh:
         mesh_phase(napp2, cl2d_baselines(napp2), smi, reps=reps)
         return 0
+    if args.serve:
+        serve_phase(napp2, cl2d_baselines(napp2), smi)
+        return 0
     build_phase()
     path = kernels_phase(n2d, n3d, reps)
     launches = kernel_path_phase(n2d, n3d)
@@ -1309,6 +1572,8 @@ def main() -> int:
     baseline = apps_phase(napp2, napp3)
     disk_phase(napp2, baseline)
     mesh_phase(napp2, baseline, smi, reps=reps)
+    gc.collect()
+    serve_phase(napp2, baseline, smi)
     del baseline
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": SOURCES[name][0],

@@ -11,7 +11,13 @@ from .backends import (
 )
 from .block import Block
 from .dataset import Dataset, datasets_from_numpy, make_dataset
-from .dependency import ChainInfo, analyze_chain, chain_signature, plan_signature
+from .dependency import (
+    ChainInfo,
+    analyze_chain,
+    chain_signature,
+    plan_signature,
+    shared_plan_signature,
+)
 from .device import resolve_device
 from .engine import SliceBoundsError, TileEngine
 from .executor import (
@@ -120,6 +126,7 @@ from .transfer import (
 __all__ = [
     "Block", "Dataset", "make_dataset", "datasets_from_numpy",
     "ChainInfo", "analyze_chain", "chain_signature", "plan_signature",
+    "shared_plan_signature",
     "resolve_device", "SliceBoundsError", "TileEngine",
     "ChainPlan", "ChainStats", "OOCConfig", "OutOfCoreExecutor",
     "ResidentExecutor",

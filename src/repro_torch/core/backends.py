@@ -191,10 +191,13 @@ def _resident(config):
                             device=config.device)
 
 
-def _ooc_executor(config, **overrides):
+def _ooc_executor(config, shared_plans=None, **overrides):
     """The shared ooc-family factory: a plain executor, or — when the config
     carries a multi-device mesh — the sharded one wrapping a per-device
-    executor per mesh entry."""
+    executor per mesh entry.  ``shared_plans`` (a serving-layer
+    :class:`~repro_torch.serve.SharedPlanCache`) attaches a cross-executor
+    plan cache to unsharded executors; sharded executors plan per device
+    and keep their caches private."""
     from .executor import OutOfCoreExecutor
     from .sharded import ShardedOutOfCoreExecutor
 
@@ -204,7 +207,7 @@ def _ooc_executor(config, **overrides):
         return ShardedOutOfCoreExecutor(
             ooc_cfg, mesh=mesh, shard_dim=config.shard_dim,
             halo_depth=config.halo_depth)
-    return OutOfCoreExecutor(ooc_cfg)
+    return OutOfCoreExecutor(ooc_cfg, shared_plans=shared_plans)
 
 
 @register_backend("ooc")

@@ -354,3 +354,35 @@ def plan_signature(loops: Sequence[ParallelLoop], tiled_dim: int = 0) -> Tuple:
         )
         for lp in loops
     )
+
+
+def shared_plan_signature(loops: Sequence[ParallelLoop], tiled_dim: int = 0) -> Tuple:
+    """Tenant-neutral variant of ``plan_signature`` for cross-session plan
+    sharing (the serving layer's shared cache).
+
+    ``plan_signature`` keys dataset identity by ``id(a.dat)`` — correct for a
+    single session (the same Dataset object means the same buffer), but it
+    makes two tenants running the *same* app on *separate* datasets miss each
+    other's plans by construction.  Here datasets are keyed structurally
+    (name, block extents, halo, dtype): two chains with equal shared
+    signatures have isomorphic data layouts and value-identical kernels, so
+    one chain's plan replays soundly for the other once its ``ChainInfo`` is
+    rebound to the new tenant's datasets (the engine and Plan IR reference
+    datasets by name only).
+
+    Kernels that capture non-data objects (app instances, other sessions'
+    state) fingerprint by identity inside ``loop_kernel_fingerprint`` and so
+    never match across tenants — the safe direction.  Captured tensors are
+    content-hashed (a CUDA capture through a host copy)."""
+    return (tiled_dim,) + tuple(
+        (
+            lp.name,
+            lp.range_,
+            tuple((a.dat.name, tuple(a.dat.block.size), tuple(a.dat.halo),
+                   a.dat.dtype.str, a.stencil.points, a.mode.value)
+                  for a in lp.args),
+            tuple((r.name, r.op) for r in lp.reductions),
+            loop_kernel_fingerprint(lp),
+        )
+        for lp in loops
+    )

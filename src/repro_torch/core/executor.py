@@ -33,8 +33,8 @@ upload and download lanes copy on their own streams beside the compute
 stream, so the paper's three streams are real.  Modelled *timings* still come
 from the calibrated :class:`~repro_torch.core.memory.HardwareModel` ledger.
 
-Ported from ``src/repro/core/executor.py``.  Left out until its ROADMAP
-item lands: the serving layer's shared plan cache (A12).
+Ported from ``src/repro/core/executor.py``, the serving layer's shared
+plan cache (``shared_plans``, ``tenant``) included.
 """
 from __future__ import annotations
 
@@ -51,6 +51,7 @@ from .dependency import (
     analyze_chain,
     chain_signature,
     plan_signature,
+    shared_plan_signature,
     split_chain,
 )
 from .device import resolve_device
@@ -178,7 +179,8 @@ class ChainPlan:
 class OutOfCoreExecutor:
     """Explicitly-managed 3-slot streaming executor (Algorithm 1)."""
 
-    def __init__(self, config: OOCConfig = None, *, device=None):
+    def __init__(self, config: OOCConfig = None, *, device=None,
+                 shared_plans=None):
         self.cfg = config or OOCConfig()
         # ``device`` overrides ``cfg.device``: the sharded executor of a
         # ``cuda:N`` mesh shares one config and puts each shard on its card.
@@ -199,6 +201,13 @@ class OutOfCoreExecutor:
         self.plan_hits = 0
         self.plan_misses = 0
         self.plan_time_s = 0.0
+        # Optional cross-executor plan cache (repro_torch.serve.
+        # SharedPlanCache): consulted on a local miss under the tenant-neutral
+        # signature, fed on every build.  ``tenant`` attributes lookups for
+        # the serving layer's cross-tenant hit counters; executors outside a
+        # server leave both None.
+        self.shared_plans = shared_plans
+        self.tenant: Optional[str] = None
         # The transfer subsystem: engine (worker threads or sync fallback)
         # and residency manager (slot pool, dirty tracking, pinned cache,
         # capacity accounting) are executor-lifetime so pinned device arrays
@@ -256,6 +265,21 @@ class OutOfCoreExecutor:
             return plan
         if key in self._no_fit:   # negative cache: skip the doomed analysis
             raise MemoryError("chain cannot fit (cached verdict); splitting")
+        shared_key = None
+        if self.shared_plans is not None:
+            # Same config knobs, tenant-neutral dataset identity: a plan
+            # another executor (or tenant) built for an isomorphic chain
+            # replays here once its ChainInfo is rebound to our datasets.
+            shared_key = (shared_plan_signature(loops, cfg.tiled_dim),) + key[1:]
+            cached = self.shared_plans.lookup(shared_key, self.tenant)
+            if cached is not None:
+                adopted = self._adopt_shared(cached, loops, key)
+                if adopted is not None:
+                    self._plans[key] = adopted
+                    if len(self._plans) > self._max_plans:
+                        self._plans.popitem(last=False)
+                    self.plan_hits += 1
+                    return adopted
         t0 = time.perf_counter()
         try:
             info = analyze_chain(loops, tiled_dim=cfg.tiled_dim)
@@ -300,7 +324,37 @@ class OutOfCoreExecutor:
             self._plans.popitem(last=False)
         self.plan_misses += 1
         self.plan_time_s += plan.plan_s
+        if shared_key is not None:
+            self.shared_plans.insert(shared_key, plan, self.tenant)
         return plan
+
+    def _adopt_shared(self, cp: ChainPlan, loops: Sequence[ParallelLoop],
+                      key: Tuple) -> Optional[ChainPlan]:
+        """Rebind a shared-cache ChainPlan to this chain's datasets.
+
+        The Plan IR and tile schedule reference datasets by *name*, and the
+        engine reads only names, halos, dtypes and the donor chain's kernels
+        (value-identical to ours by the shared signature) from its chain,
+        never a home: the data plane hands it the slot tensors.  So a
+        shallow copy with ``info.datasets`` swapped to our Dataset objects is
+        a complete rebind, and the interpreters stage from our homes.
+        Returns None if the dataset name sets somehow disagree (signature
+        collision paranoia — build fresh)."""
+        dats = {}
+        for lp in loops:
+            for a in lp.args:
+                dats.setdefault(a.dat.name, a.dat)
+        if set(dats) != set(cp.info.datasets):
+            return None
+        if all(dats[n] is d for n, d in cp.info.datasets.items()):
+            info = cp.info            # same tenant, different executor/lane
+        else:
+            info = replace(cp.info, datasets=dats)
+        return ChainPlan(
+            key=key, info=info, sched=cp.sched, engine=cp.engine,
+            slot_bytes=cp.slot_bytes, sig=cp.sig, plan_s=0.0, ir=cp.ir,
+            pinned_names=cp.pinned_names, pinned_bytes=cp.pinned_bytes,
+        )
 
     @property
     def plan_hit_rate(self) -> float:

@@ -191,6 +191,11 @@ class LedgerInterpreter:
     # Sim mode replays the modelled timeline as spans (the drift-audit oracle
     # case); the data plane emits wall-clock spans instead.
     _trace_modelled = True
+    # A traced CUDA data plane times the compute-stream work of an op with a
+    # pair of events: the start is recorded once the op's host waits are
+    # over (``_device_span_start``), the end after its dispatch.  None here.
+    device_spans: Optional[List[Tuple]] = None
+    _pending_start: Any = None
 
     def run(self) -> InterpResult:
         plan = self.plan
@@ -256,7 +261,16 @@ class LedgerInterpreter:
             args: Dict[str, Any] = {"chain": ci, "op": i}
             if tile is not None:
                 args["tile"] = tile
-            if op.kind in self._HANDLE_KINDS or n1 == n0:
+            start, self._pending_start = self._pending_start, None
+            if start is not None:
+                # Device-timed op: its span on the stream's track comes from
+                # the events (``finish``); the host side is dispatch only.
+                self.device_spans.append(
+                    (op.kind, dict(args, eids=list(range(n0, n1))),
+                     events[n0].stream if n1 > n0 else 0,
+                     start, self._record(timing=True)))
+                track = tag + "dispatch"
+            elif op.kind in self._HANDLE_KINDS or n1 == n0:
                 track = tag + "dispatch"
             else:
                 # Inline op: its dispatch IS the achieved timing for the
@@ -671,14 +685,36 @@ class DataPlaneInterpreter(LedgerInterpreter):
         self._prefetch_armed = False
 
     # -- streams and events ---------------------------------------------------
-    def _record(self) -> Any:
+    def _record(self, timing: bool = False) -> Any:
         """An event after everything enqueued so far on the compute stream
-        (None on the CPU, where compute is synchronous)."""
+        (None on the CPU, where compute is synchronous); ``timing`` makes it
+        a timing event, for the device-timed spans of a traced run."""
         if not self.cuda:
             return None
-        ev = torch.cuda.Event()
+        ev = torch.cuda.Event(enable_timing=timing)
         ev.record(self.compute_stream)
         return ev
+
+    def _device_span_start(self) -> None:
+        """Mark where the current op's compute-stream work begins (traced
+        CUDA runs only; the dispatch loop records the end)."""
+        if self.device_spans is not None:
+            self._pending_start = self._record(timing=True)
+
+    def _emit_device_spans(self) -> None:
+        """After the compute stream has synchronised: one span per timed op
+        on ``<tag><stream>`` at the anchor's host time plus the events'
+        elapsed time, with ``device_s`` and the op's ledger ``eids`` (so the
+        drift audit reads device time for them)."""
+        tr = self.tracer
+        anchor, t_anchor = self.anchor
+        for kind, args, stream, start, end in self.device_spans:
+            t0 = t_anchor + anchor.elapsed_time(start) / 1e3
+            t1 = t_anchor + anchor.elapsed_time(end) / 1e3
+            tr.emit(kind, cat="op",
+                    track=self.trace_tag + STREAM_NAMES.get(stream, f"stream{stream}"),
+                    t_start=t0, t_end=t1,
+                    args=dict(args, device_s=start.elapsed_time(end) / 1e3))
 
     def _lane_copy(self, direction: str,
                    pairs: List[Tuple[torch.Tensor, torch.Tensor]],
@@ -717,6 +753,13 @@ class DataPlaneInterpreter(LedgerInterpreter):
         td = self.td
         if self.cuda:
             self.compute_stream = torch.cuda.current_stream(self.device)
+        if self.tracer.enabled:
+            # The anchor pairs an event with the host clock read just after
+            # it, so device-timed spans land on the tracer's timeline.
+            ev = self._record(timing=True)
+            if ev is not None:
+                self.anchor = (ev, self.tracer.clock())
+                self.device_spans = []
         pinned = {n for n, _ in
                   (e for op in self.plan.ops if isinstance(op, PinUpload)
                    for e in op.entries)}
@@ -742,6 +785,8 @@ class DataPlaneInterpreter(LedgerInterpreter):
             # Compute-stream work (the last tiles, carries, reductions) must
             # land before reductions are read and slots are released.
             self.compute_stream.synchronize()
+        if self.device_spans:
+            self._emit_device_spans()
         # Patch transfer events with the achieved wire bytes (codec output is
         # data-dependent, so threaded tasks only report it after the fact).
         # ``ledger.totals`` accumulated the raw estimate at submission and
@@ -998,6 +1043,7 @@ class DataPlaneInterpreter(LedgerInterpreter):
             # Hazard — in-place slot writes: a tile with nothing to upload
             # still writes its slot, so the slot's last download must be done.
             dh.wait()
+        self._device_span_start()
         tile = self.sched.tiles[op.tile]
         run_arrays = {**slot.arrays, **self.pinned_arrays}
         run_origins = {**self.origins[op.tile], **self.pinned_origins}
@@ -1025,6 +1071,7 @@ class DataPlaneInterpreter(LedgerInterpreter):
             # Hazard — in-place slot writes: the carry overwrites rows of the
             # next tile's slot, which its last download may still be reading.
             dh.wait()
+        self._device_span_start()
         td = self.td
         org = self.origins[op.tile]
         for name, lo, hi in op.items:

@@ -28,8 +28,9 @@ Ported from ``src/repro/core/program.py``.  ``ExecutionConfig`` gains
 CPU must be asked for).  Stencil inference traces kernels against torch CPU
 tensors.  ``fetch``/``reduction`` still return NumPy, like the reference's
 public API.  ``mesh=`` runs the sharded executor (``sim:N`` virtual or
-``cuda:N`` real devices, :mod:`repro_torch.core.sharded`).  Not ported yet:
-server sessions (ROADMAP A12).  The reference's deprecated
+``cuda:N`` real devices, :mod:`repro_torch.core.sharded`).
+``Session(backend=ServerClient)`` is a tenant of a
+:class:`repro_torch.serve.StencilServer`.  The reference's deprecated
 ``Runtime`` shims are not carried over.  ``close()`` also flushes and closes
 the disk-backed homes (``mmap``/``chunked``) the session has seen.
 """

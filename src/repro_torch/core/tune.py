@@ -16,9 +16,7 @@ lossless ``shuffle-rle`` codec is data-dependent (nominal 1.0), which the
 byte-level model cannot see — pick it from a real :func:`transfer_bench`
 measurement instead.
 
-Ported from ``src/repro/core/tune.py``.  The serving layer's shared plan
-cache (A12) is not ported, so :func:`make_sim_executor` takes no
-``shared_plans``.
+Ported from ``src/repro/core/tune.py``.
 """
 from __future__ import annotations
 
@@ -72,15 +70,19 @@ def split_chains(loops: Sequence[ParallelLoop]) -> List[List[ParallelLoop]]:
     return chains
 
 
-def make_sim_executor(config):
+def make_sim_executor(config, *, shared_plans=None):
     """A throwaway ledger-only executor for ``config`` — sharded when the
     config carries a multi-device mesh, so the tuner's shard-count
     candidates are costed with their per-device streams and halo ops.
     Delegates to the backend registry's factory so the tuner can never cost
-    a different executor shape than ``make_backend`` would construct."""
+    a different executor shape than ``make_backend`` would construct.
+    ``shared_plans`` lets the serving layer's admission oracle plan through
+    (and feed) the cross-tenant cache, so admission checks are cheap for
+    chains the server has already planned."""
     from .backends import _ooc_executor
 
-    return _ooc_executor(config, simulate_only=True, transfer="sync")
+    return _ooc_executor(config, shared_plans=shared_plans,
+                         simulate_only=True, transfer="sync")
 
 
 def modelled_makespan(config, chains: Sequence[Sequence[ParallelLoop]],

@@ -1,0 +1,2 @@
+"""Launch layer of the port: the serving entry point
+(``python -m repro_torch.launch.serve stencil ...``)."""

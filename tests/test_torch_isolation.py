@@ -58,14 +58,19 @@ def test_no_jax_or_repro_import(path):
 
 def test_default_device_never_falls_back_to_cpu():
     from repro_torch.core import Session
+    from repro_torch.serve import StencilServer
 
     if torch.cuda.is_available():
         assert Session("ooc").backend.device.type == "cuda"
+        with StencilServer("sim:1") as srv:
+            assert srv.lanes[0].device.type == "cuda"
     else:
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             Session("ooc")
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             Session("cuda")
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            StencilServer("sim:1")
 
 
 def test_chip_smoke_fails_without_a_card():

@@ -249,6 +249,21 @@ def _sharded_tune(tmp):
     return {r["mesh"] for r in rows} == {None, "sim:2"}
 
 
+def _server_session(tmp):
+    from repro_torch.serve import ServerClient, StencilServer
+
+    with StencilServer("sim:1", device="cpu", capacity_bytes=float("inf")) as srv:
+        sess = srv.session("t")
+        blk = T.Block("g", (8, 6))
+        u = T.make_dataset(blk, "u", halo=1)
+        sess.par_loop("fill", blk, ((0, 8), (0, 6)), [u],
+                      lambda acc: {"u": acc("u") + 1.0})
+        ok = (isinstance(sess.backend, ServerClient)
+              and bool((sess.fetch(u) == 1.0).all()) and len(sess.history) == 1)
+        sess.close()
+        return ok
+
+
 @pytest.mark.parametrize("call, err", [
     (_sharded_session, None),
     (lambda tmp: T.Session("ooc", device="cpu", mesh="jax:2"), T.MeshError),
@@ -258,7 +273,9 @@ def _sharded_tune(tmp):
     (_checkpoint, None),
     (lambda tmp: T.make_dataset(T.Block("g", (4, 4)), "u", store=T.StoreConfig(
         kind="mmap", directory=str(tmp))).store.kind == "mmap", None),
-], ids=["mesh", "jax-mesh", "debug", "verify", "tune", "checkpoint", "mmap"])
+    (_server_session, None),
+], ids=["mesh", "jax-mesh", "debug", "verify", "tune", "checkpoint", "mmap",
+        "server"])
 def test_unported_features_raise(call, err, tmp_path):
     """The reference's ``jax:N`` mesh has no counterpart and raises a
     ``MeshError`` that names ``cuda:N``.  The features that were unported
@@ -266,7 +283,8 @@ def test_unported_features_raise(call, err, tmp_path):
     routes an ``ooc`` Session to the sharded executor, ``tune``'s
     ``meshes=`` grid costs ``sim:2``, ``debug`` verifies the plan before it
     runs, ``verify`` finds it clean, ``checkpoint`` writes a format-1
-    manifest, ``mmap`` gives the dataset an mmap home."""
+    manifest, ``mmap`` gives the dataset an mmap home, and a
+    ``StencilServer`` session runs its chain on a lane."""
     if err is None:
         assert call(tmp_path) is True
         return
