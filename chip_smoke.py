@@ -10,6 +10,7 @@
                                      # of phase 7 it is held against
     python3 chip_smoke.py --mesh     # only phase 9 and the same two runs
     python3 chip_smoke.py --serve    # only phase 10 and the same two runs
+    python3 chip_smoke.py --model    # only phase 11, model decode
 
 Phases, each of which asserts (any failure exits non-zero):
 
@@ -109,11 +110,30 @@ Phases, each of which asserts (any failure exits non-zero):
    tenant's last ``dt`` in hex, and the drift audit of lane 0's largest
    chain.  With two or more cards the four tenants also run at 512^2 on
    ``cuda:2``, bit for bit against ``sim:2`` (else a ``serve_cuda``
-   record says it did not run).
+   record says it did not run);
+11. model decode — Llama 3.2 1B at its published config (16 layers, d
+   2048, 32 heads over 8 KV heads, ff 8192, vocabulary 128256, tied
+   embeddings, bf16; 1.236 B parameters, 2.47 GB), seeded random weights
+   made on the card, through ``repro_torch.models``: the launcher's decode
+   (batch 4, a 32-token teacher-forced prefill, 32 greedy tokens) on the
+   resident model (prefill seconds, median decode ms per token by CUDA
+   events, tokens/s, beside the weights' byte bound; peak device memory);
+   an fp32 copy of the same weights (TF32 off), 4 teacher-forced steps on
+   the card against the same 4 on the CPU (rtol 1e-3 / atol 1e-5, the
+   largest difference printed); then the same bf16 weights through a
+   ``StreamedDecoder`` of 3 slots from pinned host memory: every step's
+   logits ``torch.equal`` to the resident run's and the tokens equal, the
+   device bytes the slots hold measured by ``memory_allocated`` after every
+   step (at most 3 layer slices), uploaded bytes, H2D GB/s over copy-stream
+   events and ms per step beside its link bound, the resident ms per token
+   and the modelled step (P100 PCIe model); then ``python -m
+   repro_torch.launch.serve --arch llama3_2_1b --reduced`` on the card,
+   resident and ``--offload``, both exiting 0.  No hand-written kernel
+   launches (counts zeroed at the phase's start, read at its end).
 
 Every line but the last two is a JSON record.  The line before the last
-JSON ``ok`` line lists every ported kernel (phases 7 to 10 launch none of
-them: the apps' loops are torch ops); the card's ``nvidia-smi`` name and power
+JSON ``ok`` line lists every ported kernel (phases 7 to 11 launch none of
+them: the apps' loops and the model's layers are torch ops); the card's ``nvidia-smi`` name and power
 limit are printed on their own line before it.  The script
 imports nothing of JAX or of the JAX package.
 """
@@ -1471,6 +1491,257 @@ def serve_phase(n: int, baseline: dict, smi: str, steps: int = 4,
         shutil.rmtree(SERVE_SPILL, ignore_errors=True)
 
 
+# -- phase 11: model decode ---------------------------------------------------------
+
+MODEL_ARCH = "llama3_2_1b"
+MODEL_SEED = 0
+MODEL_WINDOW = 3
+FP32_STEPS = 4
+FP32_TOL = dict(rtol=1e-3, atol=1e-5)
+
+
+def _kernel_launches() -> dict:
+    return {"stencil2d": ops.stencil2d.launches, "stencil3d": ops.stencil3d.launches,
+            "chain2d": ops.chain2d.launches}
+
+
+def _decode_tokens(prompts: torch.Tensor, gen_tokens: int):
+    """The launcher's schedule: teacher-forced prompt tokens, then the greedy
+    token of the step before (``None`` where it is not known yet)."""
+    return [prompts[:, i] for i in range(prompts.shape[1])] + [None] * (gen_tokens - 1)
+
+
+def resident_decode(model, cache, prompts: torch.Tensor, gen_tokens: int) -> dict:
+    """The launcher's loop on the resident model: a teacher-forced prefill,
+    then greedy decode; every step's logits and token kept, each decode step
+    timed by CUDA events on the current stream, the prefill by the host clock
+    ending in a synchronise."""
+    from repro_torch.models import decode_step
+
+    P = prompts.shape[1]
+    logits_all, events = [], []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i, tok_in in enumerate(_decode_tokens(prompts, gen_tokens)):
+        if i == P:
+            torch.cuda.synchronize()
+            prefill_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+        if tok_in is None:
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            logits, cache = decode_step(model, cache, tok)
+            tok = torch.argmax(logits, -1)
+            b.record()
+            events.append((a, b))
+        else:
+            logits, cache = decode_step(model, cache, tok_in)
+            tok = torch.argmax(logits, -1)
+        logits_all.append(logits)
+    torch.cuda.synchronize()
+    decode_wall = time.perf_counter() - t0
+    return {"prefill_s": prefill_s, "decode_wall_s": decode_wall,
+            "ms": [a.elapsed_time(b) for a, b in events], "logits": logits_all,
+            "tokens": torch.stack([torch.argmax(lg, -1) for lg in logits_all[P - 1:]], 1)}
+
+
+def streamed_decode(streamer, cache, prompts: torch.Tensor, gen_tokens: int,
+                    want: dict) -> dict:
+    """The same loop through ``streamer``, each step's logits and token held
+    against the resident run's on the card (no synchronise in the loop), and
+    the device bytes the allocator holds beyond ``base`` sampled after every
+    step (``memory_allocated``, host-side), with only the step's token alive."""
+    P = prompts.shape[1]
+    logits_diff = torch.zeros((), dtype=torch.bool, device="cuda")
+    token_diff = torch.zeros((), dtype=torch.bool, device="cuda")
+    tok = torch.empty(prompts.shape[0], dtype=torch.long, device="cuda")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    held, events = [], []
+    t0 = time.perf_counter()
+    for i, tok_in in enumerate(_decode_tokens(prompts, gen_tokens)):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        logits, cache = streamer.decode(cache, tok if tok_in is None else tok_in)
+        tok = torch.argmax(logits, -1)
+        b.record()
+        events.append((a, b))
+        logits_diff |= torch.ne(logits, want["logits"][i]).any()
+        if i >= P - 1:
+            token_diff |= torch.ne(tok, want["tokens"][:, i - P + 1]).any()
+        del logits
+        held.append(torch.cuda.memory_allocated() - base)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    ms = [a.elapsed_time(b) for a, b in events]
+    return {"wall_s": wall, "ms": ms, "held": held,
+            "peak": torch.cuda.max_memory_allocated() - base,
+            "logits_equal": not bool(logits_diff), "tokens_equal": not bool(token_diff)}
+
+
+def fp32_check(model, prompts: torch.Tensor) -> dict:
+    """The same weights cast to fp32 (TF32 off): FP32_STEPS teacher-forced
+    decode steps on the card and the same steps on the CPU, both through the
+    port's ``decode_step``; the logits held at FP32_TOL."""
+    import copy
+
+    from repro_torch.models import decode_step, init_cache
+
+    tf32 = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        m32 = copy.deepcopy(model).float()
+        m32.cfg = model.cfg.with_(dtype="float32")
+        out = {}
+        for dev in ("cuda", "cpu"):
+            if dev == "cpu":
+                m32 = m32.to("cpu")
+            cache = init_cache(m32.cfg, prompts.shape[0], FP32_STEPS, device=dev)
+            t0 = time.perf_counter()
+            steps = []
+            for i in range(FP32_STEPS):
+                logits, cache = decode_step(m32, cache, prompts[:, i].to(dev))
+                steps.append(logits.cpu())
+            out[dev] = (steps, time.perf_counter() - t0)
+        del m32
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
+    errs, ok = [], True
+    for got, want in zip(out["cuda"][0], out["cpu"][0]):
+        errs.append(float((got - want).abs().max()))
+        ok = ok and torch.allclose(got, want, **FP32_TOL)
+    return {"steps": FP32_STEPS, "max_abs_diff": max(errs), "max_abs_diff_per_step": errs,
+            "max_abs_logit": float(max(w.abs().max() for w in out["cpu"][0])),
+            "within_tolerance": ok, "cuda_s": out["cuda"][1], "cpu_s": out["cpu"][1],
+            "tolerance": FP32_TOL}
+
+
+def launcher_runs(smi: str) -> None:
+    """``python -m repro_torch.launch.serve`` on the card (its default device),
+    resident and with ``--offload``, as subprocesses; both must exit 0."""
+    root = Path(__file__).resolve().parent
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [str(root / "src")] + [p for p in [os.environ.get("PYTHONPATH")] if p]))
+    for extra in ([], ["--offload"]):
+        cmd = [sys.executable, "-m", "repro_torch.launch.serve", "--arch", MODEL_ARCH,
+               "--reduced"] + extra
+        t0 = time.perf_counter()
+        out = subprocess.run(cmd, capture_output=True, text=True, timeout=300,
+                             env=env, cwd=str(root))
+        check(out.returncode == 0, f"{' '.join(cmd[1:])} exited {out.returncode}: "
+              f"{out.stderr[-2000:]}")
+        emit(phase="model_launcher", args=cmd[3:], rc=out.returncode,
+             seconds=time.perf_counter() - t0,
+             line=out.stdout.strip().splitlines()[-1], card=smi)
+
+
+def model_phase(smi: str, batch: int = 4, prompt_len: int = 32, gen_tokens: int = 32) -> None:
+    """Llama 3.2 1B at its published config, seeded random weights made on the
+    card: the launcher's decode resident, then the same weights through a
+    ``StreamedDecoder`` of MODEL_WINDOW slots (every step's logits and
+    tokens equal to the resident run's, the device bytes of the slots
+    measured), an fp32 check of the card against the CPU, and the
+    launcher's two modes as subprocesses.  No hand-written kernel may
+    launch."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_cache, init_params
+    from repro_torch.models.offload import StreamedDecoder
+
+    t_phase = time.perf_counter()
+    release_pinned_cache()
+    for ops_fn in (ops.stencil2d, ops.stencil3d, ops.chain2d):
+        ops_fn.launches = 0
+    cfg = get_config(MODEL_ARCH)
+    check((cfg.num_layers, cfg.d_model, cfg.num_heads, cfg.kv_heads, cfg.d_ff,
+           cfg.vocab_size, cfg.dtype, cfg.tie_embeddings)
+          == (16, 2048, 32, 8, 8192, 128256, "bfloat16", True),
+          f"{MODEL_ARCH} is at its published config")
+    max_len = prompt_len + gen_tokens
+    with torch.inference_mode():
+        gen = torch.Generator(device="cuda").manual_seed(MODEL_SEED)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        model = init_params(cfg, generator=gen, device="cuda")
+        prompts = torch.randint(0, cfg.vocab_size, (batch, prompt_len), generator=gen,
+                                device="cuda")
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        weight_bytes = sum(p.numel() * p.element_size() for p in model.parameters())
+        slice_bytes = sum(p.numel() * p.element_size() for p in model.blocks[0].parameters())
+        n_params = sum(p.numel() for p in model.parameters())
+        check(n_params == cfg.param_count() + cfg.d_model,  # its count leaves out the final norm
+              f"{n_params} parameters against the config's count")
+
+        torch.cuda.reset_peak_memory_stats()
+        cache = init_cache(cfg, batch, max_len, device="cuda")
+        want = resident_decode(model, cache, prompts, gen_tokens)
+        res_peak = torch.cuda.max_memory_allocated()
+        check(all(bool(torch.isfinite(lg).all()) for lg in want["logits"]),
+              "resident logits are finite")
+        check(want["logits"][0].dtype == torch.bfloat16, "bf16 logits")
+        res_ms = statistics.median(want["ms"])
+        bound_ms = weight_bytes / PEAK_BYTES_S * 1e3
+        emit(phase="model_resident", arch=MODEL_ARCH, params=n_params,
+             weight_bytes=weight_bytes, batch=batch, prompt_len=prompt_len,
+             gen_tokens=gen_tokens, init_s=init_s, prefill_s=want["prefill_s"],
+             decode_ms_per_token_median=res_ms, decode_ms_per_token=want["ms"],
+             tokens_per_s=batch * 1e3 / res_ms, decode_wall_s=want["decode_wall_s"],
+             weights_bytes_bound_ms=bound_ms, over_bound=res_ms / bound_ms,
+             peak_device_bytes=res_peak, sample=want["tokens"][0, :8].tolist(), card=smi)
+
+        fp32 = fp32_check(model, prompts)
+        emit(phase="model_fp32", arch=MODEL_ARCH, **fp32, card=smi)
+        check(fp32["within_tolerance"],
+              f"fp32 logits on the card against the CPU: max diff {fp32['max_abs_diff']}")
+
+        t0 = time.perf_counter()
+        streamer = StreamedDecoder(model, window=MODEL_WINDOW)
+        pin_s = time.perf_counter() - t0
+        check(all(h.is_pinned() for h in streamer.host), "host slices are pinned")
+        del model.blocks                      # the layers now live in host memory only
+        gc.collect()
+        torch.cuda.empty_cache()
+        cache = init_cache(cfg, batch, max_len, device="cuda")
+        run = streamed_decode(streamer, cache, prompts, gen_tokens, want)
+        upload_s = streamer.upload_seconds()
+        check(run["logits_equal"], "every streamed step's logits equal the resident run's")
+        check(run["tokens_equal"], "the streamed tokens equal the resident run's")
+        held = max(run["held"])
+        check(held <= MODEL_WINDOW * slice_bytes,
+              f"device weight bytes {held} within {MODEL_WINDOW} slices of {slice_bytes}")
+        st = streamer.stats
+        steps = len(run["ms"])
+        stream_ms = statistics.median(run["ms"])
+        h2d = st.uploaded_bytes / upload_s
+        per_step = cfg.num_layers * slice_bytes
+        emit(phase="model_streamed", arch=MODEL_ARCH, window=MODEL_WINDOW,
+             steps=steps, slice_bytes=slice_bytes, device_weight_bytes_held=held,
+             device_weight_bytes_held_first=run["held"][0],
+             peak_device_bytes_over_base=run["peak"],
+             pinned_host_bytes=sum(h.numel() * h.element_size() for h in streamer.host),
+             pin_s=pin_s, uploaded_bytes=st.uploaded_bytes,
+             uploads_timed=st.uploads_timed, upload_device_s=upload_s, h2d_gb_s=h2d / 1e9,
+             ms_per_step_median=stream_ms, ms_per_step=run["ms"],
+             link_bound_ms=per_step / h2d * 1e3, bytes_per_step=per_step,
+             resident_ms_per_token=res_ms, modelled_step_ms=st.modelled_step_s * 1e3,
+             modelled_hw="modelled, p100-pcie", wall_s=run["wall_s"],
+             logits_equal=True, tokens_equal=True, card=smi)
+        del streamer, want, model, cache
+        gc.collect()
+        torch.cuda.empty_cache()
+    release_pinned_cache()
+    launcher_runs(smi)
+    launches = _kernel_launches()
+    check(all(v == 0 for v in launches.values()),
+          f"model decode launches no hand-written kernel: {launches}")
+    emit(phase="model_done", seconds=time.perf_counter() - t_phase, launches=launches,
+         card=smi)
+
+
 def profile_phase(n: int, steps: int) -> None:
     """The out-of-core path once more per backend, with the span tracer on
     and torch.profiler around the replayed round's flush: host time by plan
@@ -1535,6 +1806,8 @@ def main() -> int:
                     help="only phase 9 and its phase 7 baselines (no result line)")
     ap.add_argument("--serve", action="store_true",
                     help="only phase 10 and its phase 7 baselines (no result line)")
+    ap.add_argument("--model", action="store_true",
+                    help="only phase 11, model decode (no result line)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on a GPU",
@@ -1558,6 +1831,9 @@ def main() -> int:
     if args.serve:
         serve_phase(napp2, cl2d_baselines(napp2), smi)
         return 0
+    if args.model:
+        model_phase(smi)
+        return 0
     build_phase()
     path = kernels_phase(n2d, n3d, reps)
     launches = kernel_path_phase(n2d, n3d)
@@ -1575,6 +1851,8 @@ def main() -> int:
     gc.collect()
     serve_phase(napp2, baseline, smi)
     del baseline
+    gc.collect()
+    model_phase(smi)
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": SOURCES[name][0],
          "replaces": SOURCES[name][1], "launches": launches[name],

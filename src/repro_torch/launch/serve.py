@@ -1,4 +1,19 @@
-"""Serving launcher.
+"""Serving launchers.
+
+Model decode (the default) runs batched decode with a KV cache: a
+teacher-forced prefill over the prompt batch, then greedy decode steps; it
+reports tokens/s and the per-step latency.  With ``--offload`` the layer
+weights stream from host memory through the out-of-core windowed schedule
+(:class:`repro_torch.models.offload.StreamedDecoder`), at most ``--window``
+layer slices on the device at any point::
+
+    python -m repro_torch.launch.serve --arch llama3_2_1b            # on the card
+    python -m repro_torch.launch.serve --arch llama3_2_1b --reduced --device cpu \\
+        --offload
+
+The dense and vlm families run; the others exit 2 and name the ROADMAP item
+that ports them.  The printed ``modelled`` step time is the P100 PCIe
+ledger model (``hw`` ``p100-pcie``), not a measurement.
 
 The ``stencil`` subcommand runs the multi-tenant
 :class:`repro_torch.serve.StencilServer`: N CloverLeaf 2D tenants submitted
@@ -8,10 +23,8 @@ from threads onto a shared lane pool with ledger-oracle admission control::
         --policy sjf --steps 3                   # on the card
     python -m repro_torch.launch.serve stencil --device cpu --tenants 2
 
-Ported from ``src/repro/launch/serve.py``; ``--device`` is new (``cuda`` by
-default, which raises where there is no card).  The reference's other
-entry point, model decode, waits for the port of the model substrate
-(ROADMAP A14): without ``stencil`` this exits non-zero and says so.
+Ported from ``src/repro/launch/serve.py``; ``--device`` is new in both
+(``cuda`` by default, which raises where there is no card).
 """
 from __future__ import annotations
 
@@ -77,14 +90,104 @@ def stencil_main(argv=None) -> int:
     return 0
 
 
+def _sync(device) -> None:
+    import torch
+
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
 def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else list(argv)
     if argv and argv[0] == "stencil":
         return stencil_main(argv[1:])
-    print("repro_torch.launch.serve: only the 'stencil' subcommand is ported; "
-          "model decode waits for the model substrate (ROADMAP A14)",
-          file=sys.stderr)
-    return 2
+
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", required=True)
+    ap.add_argument("--reduced", action="store_true")
+    ap.add_argument("--batch", type=int, default=4)
+    ap.add_argument("--prompt-len", type=int, default=32)
+    ap.add_argument("--gen-tokens", type=int, default=32)
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--offload", action="store_true",
+                    help="stream layer weights from host memory through the "
+                         "out-of-core windowed schedule (dense/vlm families)")
+    ap.add_argument("--window", type=int, default=3,
+                    help="device-resident layer slices with --offload")
+    ap.add_argument("--device", default="cuda",
+                    help="where the model runs: cuda (default) or cpu")
+    ap.add_argument("--quiet", action="store_true")
+    args = ap.parse_args(argv)
+
+    import torch
+
+    from repro_torch.configs import get_config, get_reduced_config
+    from repro_torch.core.device import resolve_device
+    from repro_torch.models import decode_step, init_cache, init_params
+    from repro_torch.models.offload import StreamedDecoder
+    from repro_torch.models.transformer import check_family
+
+    try:
+        cfg = (get_reduced_config(args.arch) if args.reduced
+               else get_config(args.arch))
+        check_family(cfg)
+    except (KeyError, NotImplementedError) as e:
+        print(f"repro_torch.launch.serve: {e}", file=sys.stderr)
+        return 2
+    dev = resolve_device(args.device)
+    gen = torch.Generator(device=dev).manual_seed(args.seed)
+    model = init_params(cfg, generator=gen, device=dev)
+    B = args.batch
+    max_len = args.prompt_len + args.gen_tokens
+    prompts = torch.randint(0, cfg.vocab_size, (B, args.prompt_len),
+                            generator=gen, device=dev)
+    cache = init_cache(cfg, B, max_len, device=dev)
+
+    streamer = None
+    if args.offload:
+        streamer = StreamedDecoder(model, window=args.window)
+        del model.blocks        # the layers now live in host memory only
+        step = streamer.decode
+    else:
+        def step(c, t):
+            return decode_step(model, c, t)
+
+    with torch.inference_mode():
+        # prefill = teacher-forced decode over the prompt (exercises the
+        # cache write path; a production server would batch-prefill)
+        t0 = time.perf_counter()
+        for i in range(args.prompt_len):
+            logits, cache = step(cache, prompts[:, i])
+        _sync(dev)
+        t_prefill = time.perf_counter() - t0
+
+        tok = torch.argmax(logits, -1)
+        lat = []
+        generated = [tok]
+        for i in range(args.gen_tokens - 1):
+            t0 = time.perf_counter()
+            logits, cache = step(cache, tok)
+            tok = torch.argmax(logits, -1)
+            _sync(dev)
+            lat.append(time.perf_counter() - t0)
+            generated.append(tok)
+        out = torch.stack(generated, 1)
+        if not bool(torch.isfinite(logits).all()):
+            print("non-finite logits", file=sys.stderr)
+            return 1
+    if not args.quiet:
+        lat_ms = 1e3 * sum(lat) / len(lat) if lat else 0.0
+        line = (f"arch={cfg.name} batch={B} device={dev} prefill={t_prefill:.2f}s "
+                f"decode={lat_ms:.1f}ms/tok "
+                f"({B * 1e3 / max(lat_ms, 1e-9):.0f} tok/s) "
+                f"sample={out[0, :8].tolist()}")
+        if streamer is not None:
+            line += (f" offload[window={streamer.window} "
+                     f"resident={streamer.device_resident_bytes() / 1e6:.1f}MB "
+                     f"modelled, {streamer.hw.name}="
+                     f"{streamer.stats.modelled_step_s * 1e3:.2f}ms/step]")
+        print(line)
+    return 0
 
 
 if __name__ == "__main__":

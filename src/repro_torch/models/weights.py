@@ -1,0 +1,94 @@
+"""Weights carried between the JAX package's parameter tree and the port's
+``Transformer``.
+
+The reference's ``init_params`` returns nested dicts whose ``blocks`` leaves
+are stacked along a leading layer axis; the port keeps one ``DenseBlock`` per
+layer with the same per-layer layouts, so a leaf's slice ``[li]`` is the
+layer's tensor as it is, with no transpose.  Leaves are numpy arrays (the
+tests pass ``np.asarray`` of JAX arrays; bfloat16 leaves, ``ml_dtypes``'
+``bfloat16``, are read bit for bit).
+"""
+from __future__ import annotations
+
+from typing import Any, Dict
+
+import numpy as np
+import torch
+
+from ..core.device import DeviceSpec
+from .config import ModelConfig
+from .transformer import Transformer
+
+
+def _tensor(a: Any) -> torch.Tensor:
+    a = np.ascontiguousarray(np.asarray(a))
+    if not a.flags.writeable:           # JAX's arrays; torch wants writable memory
+        a = a.copy()
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.view(np.uint16)).view(torch.bfloat16)
+    return torch.from_numpy(a)
+
+
+def _leaf(tree: Dict[str, Any], path) -> Any:
+    for key in path:
+        tree = tree[key]
+    return tree
+
+
+def _leaf_paths(tree: Dict[str, Any], prefix=()):
+    for key, val in tree.items():
+        if isinstance(val, dict):
+            yield from _leaf_paths(val, prefix + (key,))
+        else:
+            yield prefix + (key,)
+
+
+@torch.no_grad()
+def params_from_numpy(cfg: ModelConfig, tree: Dict[str, Any], *,
+                      device: DeviceSpec = "cuda") -> Transformer:
+    """The ``Transformer`` on ``device`` holding the weights of ``tree``, the
+    reference's parameter tree, each cast to the config's dtype.  Raises
+    ``ValueError`` when a leaf is missing, extra or of another shape."""
+    model = Transformer(cfg, device=device)
+    seen = set()
+    for name, p in model.named_parameters():
+        parts = name.split(".")
+        if parts[0] == "blocks":
+            path = ("blocks",) + tuple(parts[2:])
+            arr = np.asarray(_leaf(tree, path))[int(parts[1])]
+        else:
+            path = tuple(parts)
+            arr = _leaf(tree, path)
+        seen.add(path)
+        t = _tensor(arr)
+        if tuple(t.shape) != tuple(p.shape):
+            raise ValueError(f"{name}: tree leaf of shape {tuple(t.shape)}, "
+                             f"the model wants {tuple(p.shape)}")
+        p.copy_(t)
+    extra = set(_leaf_paths(tree)) - seen
+    if extra:
+        raise ValueError(f"tree leaves the model does not have: {sorted(extra)}")
+    return model
+
+
+def _numpy(t: torch.Tensor) -> np.ndarray:
+    t = t.detach().cpu()
+    return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
+
+
+@torch.no_grad()
+def params_to_numpy(model: Transformer) -> Dict[str, Any]:
+    """The reference's parameter tree of ``model``'s weights (``blocks``
+    stacked along a leading layer axis); bfloat16 comes back as float32,
+    exactly (numpy has no bfloat16)."""
+    tree: Dict[str, Any] = {name: _numpy(p) for name, p in model.named_parameters()
+                            if not name.startswith("blocks.")}
+    blocks: Dict[str, Any] = {}
+    for name, _ in model.blocks[0].named_parameters():
+        *path, last = name.split(".")
+        node = blocks
+        for key in path:
+            node = node.setdefault(key, {})
+        node[last] = np.stack([_numpy(blk.get_parameter(name)) for blk in model.blocks])
+    tree["blocks"] = blocks
+    return tree

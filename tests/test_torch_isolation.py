@@ -22,9 +22,16 @@ sys.modules["repro"] = None
 sys.path.insert(0, {src!r})
 sys.path.insert(0, {root!r})
 import repro_torch, repro_torch.apps, repro_torch.core, repro_torch.kernels, repro_torch.obs
+import repro_torch.configs, repro_torch.models, repro_torch.launch.serve
+import repro_torch.models.offload, repro_torch.models.weights
 import chip_smoke
 from repro_torch.core import Session
 s = Session("ooc", device="cpu", num_tiles=2, capacity_bytes=float("inf"))
+import torch
+cfg = repro_torch.configs.get_reduced_config("llama3_2_1b")
+m = repro_torch.models.init_params(cfg, generator=torch.Generator(), device="cpu")
+assert repro_torch.launch.serve.main(["--arch", "llama3_2_1b", "--reduced",
+                                      "--device", "cpu", "--offload", "--quiet"]) == 0
 assert "jax" not in [m.split(".")[0] for m in sys.modules if sys.modules[m] is not None]
 print("isolated")
 """
@@ -71,6 +78,24 @@ def test_default_device_never_falls_back_to_cpu():
             Session("cuda")
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             StencilServer("sim:1")
+
+
+def test_model_decode_never_falls_back_to_cpu():
+    from repro_torch.configs import get_reduced_config
+    from repro_torch.launch import serve as launch_serve
+    from repro_torch.models import init_cache, init_params
+
+    cfg = get_reduced_config("llama3_2_1b")
+    if torch.cuda.is_available():
+        model = init_params(cfg, generator=torch.Generator(device="cuda"))
+        assert model.embed.device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            init_params(cfg, generator=torch.Generator())
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            init_cache(cfg, 1, 4)
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            launch_serve.main(["--arch", "llama3_2_1b", "--reduced", "--quiet"])
 
 
 def test_chip_smoke_fails_without_a_card():
