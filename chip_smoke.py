@@ -11,6 +11,7 @@
     python3 chip_smoke.py --mesh     # only phase 9 and the same two runs
     python3 chip_smoke.py --serve    # only phase 10 and the same two runs
     python3 chip_smoke.py --model    # only phase 11, model decode
+    python3 chip_smoke.py --moe      # only phase 12, moe decode
 
 Phases, each of which asserts (any failure exits non-zero):
 
@@ -129,11 +130,30 @@ Phases, each of which asserts (any failure exits non-zero):
    and the modelled step (P100 PCIe model); then ``python -m
    repro_torch.launch.serve --arch llama3_2_1b --reduced`` on the card,
    resident and ``--offload``, both exiting 0.  No hand-written kernel
-   launches (counts zeroed at the phase's start, read at its end).
+   launches (counts zeroed at the phase's start, read at its end);
+12. moe decode — Qwen3-MoE 30B-A3B (48 layers, d 2048, 32 heads over 4 KV
+   heads, 128 experts top-8 of ff 768, vocabulary 151936, untied; 61.09 GB)
+   and then DeepSeek-V2-Lite (27 layers, MLA with r 512, dn 128, dr 64, dv
+   128, 64 experts top-6 of ff 1408 plus 2 shared, layer 0 dense of ff
+   10944; 31.42 GB) at their published configs, bf16 with fp32 routers,
+   seeded weights made on the card after the free device memory is checked
+   against the model's bytes: each through the launcher's decode (batch 4,
+   a 32-token teacher-forced prefill, 32 greedy tokens) resident, twice
+   from a fresh cache with every step's logits ``torch.equal`` across the
+   runs (the combine has no atomics), beside the byte bound of every weight
+   but the embedding table (at batch 4 the capacity is C = T, so every
+   expert runs); peak device memory; 4 more steps under ``torch.profiler``
+   for the card's busy share; then the same widths at 2 layers in fp32
+   (TF32 off), 4 teacher-forced steps on the card against the CPU, every
+   layer's routing equal first (the smallest top-k gap printed), the
+   logits at rtol 1e-3 / atol 1e-5; then ``python -m
+   repro_torch.launch.serve --arch <arch> --reduced`` on the card for both
+   archs (exit 0) and with ``--offload`` (exit 2).  No hand-written kernel
+   launches.
 
 Every line but the last two is a JSON record.  The line before the last
-JSON ``ok`` line lists every ported kernel (phases 7 to 11 launch none of
-them: the apps' loops and the model's layers are torch ops); the card's ``nvidia-smi`` name and power
+JSON ``ok`` line lists every ported kernel (phases 7 to 12 launch none of
+them: the apps' loops and the models' layers are torch ops); the card's ``nvidia-smi`` name and power
 limit are printed on their own line before it.  The script
 imports nothing of JAX or of the JAX package.
 """
@@ -1620,23 +1640,26 @@ def fp32_check(model, prompts: torch.Tensor) -> dict:
             "tolerance": FP32_TOL}
 
 
-def launcher_runs(smi: str) -> None:
-    """``python -m repro_torch.launch.serve`` on the card (its default device),
-    resident and with ``--offload``, as subprocesses; both must exit 0."""
+def launcher_runs(smi: str, arch: str = MODEL_ARCH,
+                  modes=(([], 0), (["--offload"], 0))) -> None:
+    """``python -m repro_torch.launch.serve --arch <arch> --reduced`` on the
+    card (its default device) as subprocesses, once for each of ``modes``
+    (extra arguments, the exit code it must give)."""
     root = Path(__file__).resolve().parent
     env = dict(os.environ, PYTHONPATH=os.pathsep.join(
         [str(root / "src")] + [p for p in [os.environ.get("PYTHONPATH")] if p]))
-    for extra in ([], ["--offload"]):
-        cmd = [sys.executable, "-m", "repro_torch.launch.serve", "--arch", MODEL_ARCH,
+    for extra, rc in modes:
+        cmd = [sys.executable, "-m", "repro_torch.launch.serve", "--arch", arch,
                "--reduced"] + extra
         t0 = time.perf_counter()
         out = subprocess.run(cmd, capture_output=True, text=True, timeout=300,
                              env=env, cwd=str(root))
-        check(out.returncode == 0, f"{' '.join(cmd[1:])} exited {out.returncode}: "
-              f"{out.stderr[-2000:]}")
+        check(out.returncode == rc, f"{' '.join(cmd[1:])} exited {out.returncode}, "
+              f"not {rc}: {out.stderr[-2000:]}")
+        lines = (out.stdout if rc == 0 else out.stderr).strip().splitlines()
         emit(phase="model_launcher", args=cmd[3:], rc=out.returncode,
-             seconds=time.perf_counter() - t0,
-             line=out.stdout.strip().splitlines()[-1], card=smi)
+             seconds=time.perf_counter() - t0, line=lines[-1] if lines else "",
+             card=smi)
 
 
 def model_phase(smi: str, batch: int = 4, prompt_len: int = 32, gen_tokens: int = 32) -> None:
@@ -1742,6 +1765,271 @@ def model_phase(smi: str, batch: int = 4, prompt_len: int = 32, gen_tokens: int 
          card=smi)
 
 
+# -- phase 12: moe decode -----------------------------------------------------------
+
+# Each moe arch's published widths: layers, d, heads, KV heads, experts,
+# top-k, expert ff, shared experts, dense layers (and their ff), vocabulary,
+# MLA (r, dn, dr, dv), untied embeddings.
+MOE_PUBLISHED = {
+    "qwen3_moe_30b_a3b": (48, 2048, 32, 4, 128, 8, 768, 0, 0, 0, 151936,
+                          (False, 0, 0, 0, 0), False),
+    "deepseek_v2_lite_16b": (27, 2048, 16, 16, 64, 6, 1408, 2, 1, 10944, 102400,
+                             (True, 512, 128, 64, 128), False),
+}
+MOE_SEED = 0
+MOE_FP32_LAYERS = 2
+MOE_PROFILED_STEPS = 4
+MOE_HEADROOM = 4e9          # init's fp32 draws (the embedding's: 1.24 GB) and the caches
+
+
+def _published(cfg) -> tuple:
+    return (cfg.num_layers, cfg.d_model, cfg.num_heads, cfg.kv_heads, cfg.num_experts,
+            cfg.experts_per_token, cfg.moe_d_ff, cfg.num_shared_experts,
+            cfg.first_dense_layers, cfg.dense_d_ff, cfg.vocab_size,
+            (cfg.mla, cfg.kv_lora_rank, cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim),
+            cfg.tie_embeddings)
+
+
+def moe_weight_bytes(cfg) -> int:
+    """The bytes of ``cfg``'s weights in the port's layout: its parameter
+    count (one FFN a layer), the final norm it leaves out, fp32 routers."""
+    es = torch.empty((), dtype=cfg.torch_dtype).element_size()
+    routers = (cfg.num_layers - cfg.first_dense_layers) * cfg.d_model * cfg.num_experts
+    return (cfg.param_count() + cfg.d_model) * es + routers * (4 - es)
+
+
+class routing_log:
+    """Within the block, every routing decision of the port's ``moe_ffn``
+    (``models.moe.route``, called by name) appends its ``topk_idx`` and
+    ``probs`` to ``calls``, on the CPU."""
+
+    def __init__(self):
+        self.calls = []
+
+    def __enter__(self):
+        from repro_torch.models import moe as moe_mod
+
+        self._mod, self._route = moe_mod, moe_mod.route
+
+        def logged(router, tokens, cfg):
+            r = self._route(router, tokens, cfg)
+            self.calls.append((r.topk_idx.cpu(), r.probs.cpu()))
+            return r
+        moe_mod.route = logged
+        return self
+
+    def __exit__(self, *exc):
+        self._mod.route = self._route
+
+
+def moe_fp32_check(cfg, prompts: torch.Tensor, device: str = "cuda") -> dict:
+    """``cfg``'s published widths at MOE_FP32_LAYERS layers in fp32 (TF32
+    off): FP32_STEPS teacher-forced decode steps on ``device`` and on the
+    CPU, every layer's routing compared first, then the logits at FP32_TOL.
+    ``min_gap`` is the smallest gap between a token's k-th and (k+1)-th
+    router probability on the CPU: how near a routing decision came to a tie."""
+    from repro_torch.models import decode_step, init_cache, init_params
+
+    cfg = cfg.with_(num_layers=MOE_FP32_LAYERS, dtype="float32")
+    tf32 = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        gen = torch.Generator(device=device).manual_seed(MOE_SEED + 1)
+        model = init_params(cfg, generator=gen, device=device)
+        out = {}
+        for role, dev in (("card", device), ("cpu", "cpu")):
+            model = model.to(dev)
+            cache = init_cache(cfg, prompts.shape[0], FP32_STEPS, device=dev)
+            t0 = time.perf_counter()
+            steps = []
+            with routing_log() as log:
+                for i in range(FP32_STEPS):
+                    logits, cache = decode_step(model, cache, prompts[:, i].to(dev))
+                    steps.append(logits.cpu())
+            out[role] = (steps, log.calls, time.perf_counter() - t0)
+        del model, cache
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
+    k = cfg.experts_per_token
+    calls = list(zip(out["card"][1], out["cpu"][1]))
+    flips = [i for i, ((a, _), (b, _)) in enumerate(calls) if not torch.equal(a, b)]
+    gaps = []
+    for _, (_, probs) in calls:
+        top = probs.sort(-1, descending=True).values
+        gaps.append(float((top[:, k - 1] - top[:, k]).min()))
+    errs, ok = [], True
+    for got, want in zip(out["card"][0], out["cpu"][0]):
+        errs.append(float((got - want).abs().max()))
+        ok = ok and torch.allclose(got, want, **FP32_TOL)
+    return {"layers": MOE_FP32_LAYERS, "steps": FP32_STEPS,
+            "routing_calls": len(calls), "routing_equal": not flips and bool(calls),
+            "routing_flips": flips, "min_gap": min(gaps), "min_gap_per_call": gaps,
+            "max_abs_diff": max(errs), "max_abs_diff_per_step": errs,
+            "max_abs_logit": float(max(w.abs().max() for w in out["cpu"][0])),
+            "within_tolerance": ok, "card_s": out["card"][2], "cpu_s": out["cpu"][2],
+            "tolerance": FP32_TOL}
+
+
+def moe_profile(arch: str, model, prompts: torch.Tensor, smi: str,
+                steps: int = MOE_PROFILED_STEPS) -> None:
+    """``steps`` teacher-forced decode steps from a fresh cache under
+    ``torch.profiler`` (device activity only; after two unprofiled steps):
+    the card's busy and idle share of the host's wall, and the kernels that
+    took its time.  The profiler slows the host, so the wall here is above
+    the unprofiled runs'."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.models import decode_step, init_cache
+
+    cache = init_cache(model.cfg, prompts.shape[0], steps + 2, device="cuda")
+    for i in range(2):
+        decode_step(model, cache, prompts[:, i])
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for i in range(2, steps + 2):
+            decode_step(model, cache, prompts[:, i])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    busy_s, work_s, count, top = device_activity(prof)
+    emit(phase="moe_profile", arch=arch, steps=steps, wall_s=wall,
+         ms_per_step=wall / steps * 1e3, device_busy_ms_per_step=busy_s / steps * 1e3,
+         device_idle_share=1 - busy_s / wall, device_work_s=work_s,
+         device_activities_per_step=count / steps, top_device_ms=top, card=smi)
+
+
+def moe_decode(arch: str, smi: str, batch: int, prompt_len: int, gen_tokens: int,
+               device: str = "cuda") -> None:
+    """One moe arch at its published config, seeded bf16 weights made on the
+    card: the launcher's decode resident, twice from a fresh cache, every
+    step's logits ``torch.equal`` across the two runs; then the fp32 check.
+    (``device`` is the card; the CPU test of this phase passes ``"cpu"``.)"""
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_cache, init_params
+    from repro_torch.models.moe import capacity
+
+    cfg = get_config(arch)
+    check(_published(cfg) == MOE_PUBLISHED[arch] and cfg.dtype == "bfloat16",
+          f"{arch} is at its published config")
+    weight_bytes = moe_weight_bytes(cfg)
+    gc.collect()
+    torch.cuda.empty_cache()
+    free, total = torch.cuda.mem_get_info()
+    check(free >= weight_bytes + MOE_HEADROOM,
+          f"{arch}: {free} B free on the card, the model needs {weight_bytes} B "
+          f"and {MOE_HEADROOM:.0f} B of headroom (of {total})")
+    max_len = prompt_len + gen_tokens
+    with torch.inference_mode():
+        torch.cuda.reset_peak_memory_stats()
+        gen = torch.Generator(device=device).manual_seed(MOE_SEED)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        model = init_params(cfg, generator=gen, device=device)
+        prompts = torch.randint(0, cfg.vocab_size, (batch, prompt_len), generator=gen,
+                                device=device)
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        n_params = sum(p.numel() for p in model.parameters())
+        held = sum(p.numel() * p.element_size() for p in model.parameters())
+        check(n_params == cfg.param_count() + cfg.d_model,  # its count leaves out the final norm
+              f"{n_params} parameters against the config's count")
+        check(held == weight_bytes, f"{held} weight bytes, {weight_bytes} expected")
+        cache = init_cache(cfg, batch, max_len, device=device)
+        per_token_layer = sum(cache[key][0, 0, 0].numel() * cache[key].element_size()
+                              for key in cache if key != "len")
+        want = resident_decode(model, cache, prompts, gen_tokens)
+        check(all(bool(torch.isfinite(lg).all()) for lg in want["logits"]),
+              "resident logits are finite")
+        check(want["logits"][0].dtype == torch.bfloat16, "bf16 logits")
+        again = resident_decode(model, init_cache(cfg, batch, max_len, device=device),
+                                prompts, gen_tokens)
+        same = [torch.equal(a, b) for a, b in zip(want["logits"], again["logits"])]
+        check(all(same), f"{arch}: steps {[i for i, s in enumerate(same) if not s]} of "
+              f"the second run differ from the first")
+        peak = torch.cuda.max_memory_allocated()
+        # a step reads every weight but the embedding table, of which it
+        # gathers one row a sequence: C = T at this batch, so every expert runs
+        embed = model.embed.numel() * model.embed.element_size()
+        bound_bytes = weight_bytes - embed + batch * cfg.d_model * model.embed.element_size()
+        bound_ms = bound_bytes / PEAK_BYTES_S * 1e3
+        ms = statistics.median(want["ms"])
+        emit(phase="moe_resident", arch=arch, params=n_params, weight_bytes=weight_bytes,
+             active_params=cfg.active_param_count(), free_before=free,
+             batch=batch, prompt_len=prompt_len, gen_tokens=gen_tokens,
+             capacity=capacity(cfg, batch), experts=cfg.num_experts, init_s=init_s,
+             prefill_s=want["prefill_s"], decode_ms_per_token_median=ms,
+             decode_ms_per_token=want["ms"], tokens_per_s=batch * 1e3 / ms,
+             decode_wall_s=want["decode_wall_s"],
+             second_run={"prefill_s": again["prefill_s"],
+                         "decode_ms_per_token_median": statistics.median(again["ms"]),
+                         "decode_wall_s": again["decode_wall_s"]},
+             steps_equal=len(same), bytes_bound=bound_bytes, bytes_bound_ms=bound_ms,
+             over_bound=ms / bound_ms, peak_device_bytes=peak,
+             cache_bytes_per_token_layer=per_token_layer,
+             sample=want["tokens"][0, :8].tolist(), card=smi)
+        if device == "cuda":
+            moe_profile(arch, model, prompts, smi)
+        del model, cache, want, again
+        gc.collect()
+        torch.cuda.empty_cache()
+        fp32 = moe_fp32_check(cfg, prompts, device)
+        emit(phase="moe_fp32", arch=arch, **fp32, card=smi)
+        check(fp32["routing_equal"],
+              f"{arch}: routing on the card differs from the CPU at calls "
+              f"{fp32['routing_flips']} (smallest top-k gap {fp32['min_gap']})")
+        check(fp32["within_tolerance"],
+              f"{arch}: fp32 logits on the card against the CPU: max diff "
+              f"{fp32['max_abs_diff']}")
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+def moe_phase(smi: str, batch: int = 4, prompt_len: int = 32, gen_tokens: int = 32) -> None:
+    """Qwen3-MoE 30B-A3B and DeepSeek-V2-Lite at their published configs, one
+    after the other (``moe_decode``), then the launcher on both reduced
+    archs (resident exits 0, ``--offload`` 2).  No hand-written kernel may
+    launch."""
+    t_phase = time.perf_counter()
+    release_pinned_cache()
+    for ops_fn in (ops.stencil2d, ops.stencil3d, ops.chain2d):
+        ops_fn.launches = 0
+    emit(phase="moe_start", allocated=torch.cuda.memory_allocated(),
+         reserved=torch.cuda.memory_reserved(), card=smi)
+    for arch in MOE_PUBLISHED:
+        moe_decode(arch, smi, batch, prompt_len, gen_tokens)
+    for arch in MOE_PUBLISHED:
+        launcher_runs(smi, arch, modes=(([], 0), (["--offload"], 2)))
+    launches = _kernel_launches()
+    check(all(v == 0 for v in launches.values()),
+          f"moe decode launches no hand-written kernel: {launches}")
+    emit(phase="moe_done", seconds=time.perf_counter() - t_phase, launches=launches,
+         card=smi)
+
+
+def device_activity(prof, top: int = 12):
+    """Of a ``torch.profiler`` run: the seconds the card was busy (the union
+    of its kernels' and copies' intervals), the seconds of work they did
+    (their sum: streams overlap), their count, and the ``top`` names by
+    device ms, each with its ms and count."""
+    from collections import defaultdict
+
+    from torch.autograd import DeviceType
+
+    device = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    busy_us, end = 0.0, float("-inf")
+    for a, b in sorted((e.time_range.start, e.time_range.end) for e in device):
+        busy_us += max(0.0, b - max(a, end))
+        end = max(end, b)
+    by_kernel = defaultdict(lambda: [0.0, 0])
+    for e in device:
+        by_kernel[e.name[:80]][0] += e.time_range.elapsed_us() / 1e3
+        by_kernel[e.name[:80]][1] += 1
+    ranked = sorted(by_kernel.items(), key=lambda kv: kv[1][0], reverse=True)
+    return (busy_us / 1e6, sum(v[0] for v in by_kernel.values()) / 1e3, len(device),
+            [[k, v[0], v[1]] for k, v in ranked[:top]])
+
+
 def profile_phase(n: int, steps: int) -> None:
     """The out-of-core path once more per backend, with the span tracer on
     and torch.profiler around the replayed round's flush: host time by plan
@@ -1749,7 +2037,6 @@ def profile_phase(n: int, steps: int) -> None:
     (CUPTI)."""
     from collections import defaultdict
 
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     homes = heat_inputs((n, n), seed=2)
@@ -1770,26 +2057,14 @@ def profile_phase(n: int, steps: int) -> None:
                 host[sp.name] += sp.t_end - sp.t_start
             elif sp.cat in ("lane", "chain"):
                 host[f"{sp.track}:{sp.cat}"] += sp.t_end - sp.t_start
-        # Device-side activities (kernels, memcpys) only; their union is the
-        # time the card was busy, their sum the work it did (streams overlap).
-        device = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-        busy_us, end = 0.0, float("-inf")
-        for a, b in sorted((e.time_range.start, e.time_range.end) for e in device):
-            busy_us += max(0.0, b - max(a, end))
-            end = max(end, b)
-        by_kernel = defaultdict(lambda: [0.0, 0])
-        for e in device:
-            by_kernel[e.name[:80]][0] += e.time_range.elapsed_us() / 1e3
-            by_kernel[e.name[:80]][1] += 1
-        top = sorted(by_kernel.items(), key=lambda kv: kv[1][0], reverse=True)
+        busy_s, work_s, _, top = device_activity(prof)
         top_cpu = sorted(prof.key_averages(), key=lambda e: e.self_cpu_time_total,
                          reverse=True)
         emit(phase="profile", backend=backend, interior=[n, n], steps=steps,
              wall_s=wall, host_s_by_span=dict(host),
-             device_busy_s=busy_us / 1e6, device_idle_share=1 - busy_us / 1e6 / wall,
-             device_work_s=sum(v[0] for v in by_kernel.values()) / 1e3,
-             plan_time_s=sess.plan_stats()["plan_time_s"],
-             top_device_ms=[[k, v[0], v[1]] for k, v in top[:12]],
+             device_busy_s=busy_s, device_idle_share=1 - busy_s / wall,
+             device_work_s=work_s, plan_time_s=sess.plan_stats()["plan_time_s"],
+             top_device_ms=top,
              top_host_ms=[[e.key, e.self_cpu_time_total / 1e3, e.count]
                           for e in top_cpu[:12]])
 
@@ -1808,6 +2083,8 @@ def main() -> int:
                     help="only phase 10 and its phase 7 baselines (no result line)")
     ap.add_argument("--model", action="store_true",
                     help="only phase 11, model decode (no result line)")
+    ap.add_argument("--moe", action="store_true",
+                    help="only phase 12, moe decode (no result line)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on a GPU",
@@ -1834,6 +2111,9 @@ def main() -> int:
     if args.model:
         model_phase(smi)
         return 0
+    if args.moe:
+        moe_phase(smi)
+        return 0
     build_phase()
     path = kernels_phase(n2d, n3d, reps)
     launches = kernel_path_phase(n2d, n3d)
@@ -1853,6 +2133,7 @@ def main() -> int:
     del baseline
     gc.collect()
     model_phase(smi)
+    moe_phase(smi)
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": SOURCES[name][0],
          "replaces": SOURCES[name][1], "launches": launches[name],

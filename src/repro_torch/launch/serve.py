@@ -11,8 +11,9 @@ layer slices on the device at any point::
     python -m repro_torch.launch.serve --arch llama3_2_1b --reduced --device cpu \\
         --offload
 
-The dense and vlm families run; the others exit 2 and name the ROADMAP item
-that ports them.  The printed ``modelled`` step time is the P100 PCIe
+The dense, vlm and moe families run (moe resident only: ``--offload`` on a
+moe arch exits 2, as the reference's launcher does); the others exit 2 and
+name the ROADMAP item that ports them.  The printed ``modelled`` step time is the P100 PCIe
 ledger model (``hw`` ``p100-pcie``), not a measurement.
 
 The ``stencil`` subcommand runs the multi-tenant
@@ -124,7 +125,7 @@ def main(argv=None) -> int:
     from repro_torch.configs import get_config, get_reduced_config
     from repro_torch.core.device import resolve_device
     from repro_torch.models import decode_step, init_cache, init_params
-    from repro_torch.models.offload import StreamedDecoder
+    from repro_torch.models.offload import STREAMED_FAMILIES, StreamedDecoder
     from repro_torch.models.transformer import check_family
 
     try:
@@ -133,6 +134,10 @@ def main(argv=None) -> int:
         check_family(cfg)
     except (KeyError, NotImplementedError) as e:
         print(f"repro_torch.launch.serve: {e}", file=sys.stderr)
+        return 2
+    if args.offload and cfg.family not in STREAMED_FAMILIES:
+        print(f"--offload supports dense/vlm families, not {cfg.family}",
+              file=sys.stderr)
         return 2
     dev = resolve_device(args.device)
     gen = torch.Generator(device=dev).manual_seed(args.seed)

@@ -1,18 +1,22 @@
 """Attention: chunked-flash (online softmax) for prefill, plain masked
-attention for single-token decode, GQA throughout.
+attention for single-token decode, GQA throughout, and MLA (DeepSeek-V2)
+with weight-absorbed decode against the compressed KV cache.
 
 Ported from ``src/repro/models/attention.py``.  As there, no flash kernel is
 used: the chunk loop is plain torch ops, the scores and the softmax state are
 fp32, masked scores take ``NEG_INF = -1e30`` (not ``-inf``), the last chunk is
 padded and masked by ``kv_pos < Skv``, and the output is ``o / max(l, 1e-30)``.
 The reference's ``jax.checkpoint`` around the chunk body is a training concern;
-callers run these under ``torch.inference_mode()``.  The MLA functions
-(``mla_expand``, ``mla_decode_attention``) come with the moe family
-(ROADMAP A14(b)).
+callers run these under ``torch.inference_mode()``.
+
+``mla_decode_attention`` masks a ``(B,)`` ``cur_len`` per row, as
+``decode_attention`` does.  The reference's builds a ``(1, L)`` mask from
+it, comparing position j with ``cur_len[j]`` (ROADMAP fault C5); its
+decode step passes a scalar and never meets this.
 """
 from __future__ import annotations
 
-from typing import Optional, Union
+from typing import Optional, Tuple, Union
 
 import torch
 import torch.nn.functional as F
@@ -103,12 +107,55 @@ def decode_attention(
     k_r = repeat_kv(k_cache, G)
     v_r = repeat_kv(v_cache, G)
     scores = torch.einsum("bshd,bchd->bhsc", q.float(), k_r.float()) * s  # (B,Hq,1,L)
-    pos = torch.arange(L, device=q.device)
-    if isinstance(cur_len, int) or cur_len.ndim == 0:
-        mask = (pos[None, :] < cur_len).expand(B, L)
-    else:
-        mask = pos[None, :] < cur_len[:, None]
-    scores = torch.where(mask[:, None, None, :], scores, NEG_INF)
+    scores = torch.where(_length_mask(cur_len, B, L, q.device)[:, None, None, :],
+                         scores, NEG_INF)
     p = torch.softmax(scores, dim=-1)
     o = torch.einsum("bhsc,bchd->bhsd", p, v_r.float())
     return o.transpose(1, 2).to(q.dtype)                          # (B,1,Hq,Dv)
+
+
+def _length_mask(cur_len: Union[int, torch.Tensor], B: int, L: int,
+                 device: torch.device) -> torch.Tensor:
+    """(B, L): position j of row b is valid where j < cur_len (or cur_len[b])."""
+    pos = torch.arange(L, device=device)
+    if isinstance(cur_len, int) or cur_len.ndim == 0:
+        return (pos[None, :] < cur_len).expand(B, L)
+    return pos[None, :] < cur_len[:, None]
+
+
+# -- MLA (DeepSeek-V2) ----------------------------------------------------------
+def mla_expand(attn, c_kv: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Expand the compressed cache (B, S, r) to per-head K_nope (B, S, H, dn)
+    and V (B, S, H, dv) (the prefill path).  ``attn`` holds ``w_uk``
+    (r, H, dn) and ``w_uv`` (r, H, dv)."""
+    k_nope = torch.einsum("bsr,rhd->bshd", c_kv, attn.w_uk)
+    v = torch.einsum("bsr,rhd->bshd", c_kv, attn.w_uv)
+    return k_nope, v
+
+
+def mla_decode_attention(
+    attn,
+    q_nope: torch.Tensor,       # (B,1,H,dn)
+    q_rope: torch.Tensor,       # (B,1,H,dr), rope already applied
+    ckv_cache: torch.Tensor,    # (B,L,r)
+    krope_cache: torch.Tensor,  # (B,L,dr), rope already applied
+    cur_len: Union[int, torch.Tensor],
+    cfg,
+) -> torch.Tensor:
+    """Weight-absorbed MLA decode: attends in the compressed (rank-r) space,
+    so the per-token cache is r + dr values, not H·(dn+dv).  ``cur_len``: an
+    int, a 0-d or a (B,) tensor of valid lengths.  Returns the per-head
+    context (B,1,H,dv) in ``q_nope``'s dtype."""
+    # absorb W_uk into q: q_eff (B,1,H,r)
+    q_eff = torch.einsum("bshd,rhd->bshr", q_nope.float(), attn.w_uk.float())
+    s = (cfg.qk_nope_dim + cfg.qk_rope_dim) ** -0.5
+    scores = (torch.einsum("bshr,blr->bhsl", q_eff, ckv_cache.float())
+              + torch.einsum("bshd,bld->bhsl", q_rope.float(), krope_cache.float())) * s
+    B, L = ckv_cache.shape[0], ckv_cache.shape[1]
+    scores = torch.where(_length_mask(cur_len, B, L, q_nope.device)[:, None, None, :],
+                         scores, NEG_INF)
+    p = torch.softmax(scores, dim=-1)
+    ctx_r = torch.einsum("bhsl,blr->bshr", p, ckv_cache.float())       # (B,1,H,r)
+    # absorb W_uv on the way out: (B,1,H,dv)
+    ctx = torch.einsum("bshr,rhd->bshd", ctx_r, attn.w_uv.float())
+    return ctx.to(q_nope.dtype)

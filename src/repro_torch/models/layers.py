@@ -59,16 +59,17 @@ def sinusoidal_positions(length: int, dim: int) -> torch.Tensor:
 def dense_init(generator: torch.Generator, shape: Sequence[int], dtype: torch.dtype,
                scale: Optional[float] = None) -> torch.Tensor:
     """Normal weights scaled by ``1/sqrt(fan_in)`` (or ``scale``), drawn in
-    fp32 on the generator's device and cast to ``dtype``."""
+    fp32 on the generator's device and cast to ``dtype`` (scaled in place:
+    one fp32 copy of the weight at a time)."""
     fan_in = shape[0] if len(shape) >= 2 else shape[-1]
     s = scale if scale is not None else 1.0 / np.sqrt(fan_in)
     w = torch.randn(tuple(shape), generator=generator, dtype=torch.float32,
                     device=generator.device)
-    return (w * s).to(dtype)
+    return w.mul_(s).to(dtype)
 
 
 def embed_init(generator: torch.Generator, shape: Sequence[int],
                dtype: torch.dtype) -> torch.Tensor:
     w = torch.randn(tuple(shape), generator=generator, dtype=torch.float32,
                     device=generator.device)
-    return (w * 0.02).to(dtype)
+    return w.mul_(0.02).to(dtype)

@@ -19,7 +19,7 @@ JAX's async dispatch for the overlap, the port makes it explicit on CUDA:
 * each layer's weights live in one flat pinned host buffer (a view per
   weight, each at a 256-byte offset); the device holds at most ``window``
   slots, allocated at their first use and reused, each a flat buffer with a
-  ``DenseBlock`` of views into it;
+  ``Block`` of views into it;
 * an upload runs on the streamer's copy stream and first waits for the event
   recorded on the compute stream after the last layer that read its slot;
   a layer's compute waits for its slot's upload event.  The slots never go
@@ -46,12 +46,16 @@ import torch
 
 from ..core.memory import P100_PCIE, HardwareModel, TransferLedger
 from .transformer import (
-    DenseBlock,
+    Block,
     Transformer,
     cache_position,
     decode_layer,
+    layer_caches,
     lm_logits,
 )
+
+# The families whose layers stream (the reference's streamer serves these).
+STREAMED_FAMILIES = ("dense", "vlm")
 
 # Byte alignment of each weight's view in a layer's flat buffer.
 _ALIGN = 256
@@ -69,11 +73,11 @@ class StreamStats:
 
 
 class _Slot:
-    """One device slot: a flat buffer and a ``DenseBlock`` of views into it."""
+    """One device slot: a flat buffer and a ``Block`` of views into it."""
 
     __slots__ = ("flat", "block", "ready", "free")
 
-    def __init__(self, flat: torch.Tensor, block: DenseBlock):
+    def __init__(self, flat: torch.Tensor, block: Block):
         self.flat = flat
         self.block = block
         self.ready: Optional[torch.cuda.Event] = None   # upload done (copy stream)
@@ -92,6 +96,10 @@ class LayerStreamer:
     def __init__(self, model: Transformer, *, window: int = 3,
                  hw: HardwareModel = P100_PCIE):
         cfg = model.cfg
+        if cfg.family not in STREAMED_FAMILIES:
+            # The reference's streamer asserts the same (in its decode).
+            raise ValueError(f"streamed decode serves the dense and vlm families, "
+                             f"not {cfg.family} ({cfg.name})")
         self.cfg = cfg
         self.window = max(2, window)
         self.hw = hw
@@ -132,7 +140,7 @@ class LayerStreamer:
 
     def _new_slot(self) -> _Slot:
         flat = torch.empty(self._flat_numel, dtype=self.dtype, device=self.device)
-        block = DenseBlock(self.cfg, self.dtype, torch.device("meta"))
+        block = Block(self.cfg, self.dtype, torch.device("meta"))
         for name, shape, off in self._layout:
             *path, leaf = name.split(".")
             owner = block.get_submodule(".".join(path)) if path else block
@@ -175,7 +183,7 @@ class LayerStreamer:
         self.stats.uploaded_bytes += self.layer_nbytes[li]
         return slot
 
-    def _acquire(self, li: int) -> DenseBlock:
+    def _acquire(self, li: int) -> Block:
         """Layer ``li``'s weights, once its upload is done (compute stream)."""
         slot = self._ring[li]
         if self._cuda:
@@ -223,7 +231,7 @@ class StreamedDecoder(LayerStreamer):
         """One step: logits (B, vocab) and ``cache``, updated in place.
         Raises ``CacheFullError`` when the cache has no slot left."""
         cfg = self.cfg
-        cur = cache_position(cache)
+        cur = cache_position(cfg, cache)
         batch = tokens.shape[0]
         self.upload_seconds(wait=False)
         h = self.resident["embed"][tokens][:, None, :]
@@ -232,7 +240,7 @@ class StreamedDecoder(LayerStreamer):
             if li + 1 < self.L:
                 self._fetch(li + 1)          # prefetch the next layer (copy stream)
             blk = self._acquire(li)
-            h = decode_layer(blk, h, cfg, cache["k"][li], cache["v"][li], cur)
+            h = decode_layer(blk, h, cfg, layer_caches(cfg, cache, li), cur)
             self._release(li)
         # speculative prefetch for the NEXT step's first layer: the next
         # chain is the same layer stack, so this always hits.

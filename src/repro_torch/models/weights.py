@@ -2,9 +2,12 @@
 ``Transformer``.
 
 The reference's ``init_params`` returns nested dicts whose ``blocks`` leaves
-are stacked along a leading layer axis; the port keeps one ``DenseBlock`` per
-layer with the same per-layer layouts, so a leaf's slice ``[li]`` is the
-layer's tensor as it is, with no transpose.  Leaves are numpy arrays (the
+are stacked along a leading layer axis; the port keeps one block per layer
+with the same per-layer layouts, so a leaf's slice ``[li]`` is the layer's
+tensor as it is, with no transpose.  A moe layer of the port holds only the
+FFN it runs, where the reference's tree gives every layer both ``moe`` and
+``mlp`` when the config has dense layers: the unused slices are accepted and
+not loaded, and ``params_to_numpy`` writes them as zeros.  Leaves are numpy arrays (the
 tests pass ``np.asarray`` of JAX arrays; bfloat16 leaves, ``ml_dtypes``'
 ``bfloat16``, are read bit for bit).
 """
@@ -29,8 +32,10 @@ def _tensor(a: Any) -> torch.Tensor:
     return torch.from_numpy(a)
 
 
-def _leaf(tree: Dict[str, Any], path) -> Any:
+def _leaf(tree: Dict[str, Any], path, name: str) -> Any:
     for key in path:
+        if not isinstance(tree, dict) or key not in tree:
+            raise ValueError(f"{name}: the tree has no leaf {'/'.join(path)}")
         tree = tree[key]
     return tree
 
@@ -47,18 +52,23 @@ def _leaf_paths(tree: Dict[str, Any], prefix=()):
 def params_from_numpy(cfg: ModelConfig, tree: Dict[str, Any], *,
                       device: DeviceSpec = "cuda") -> Transformer:
     """The ``Transformer`` on ``device`` holding the weights of ``tree``, the
-    reference's parameter tree, each cast to the config's dtype.  Raises
-    ``ValueError`` when a leaf is missing, extra or of another shape."""
+    reference's parameter tree, each cast to its parameter's dtype (the
+    config's, and fp32 for a MoE router).  Raises ``ValueError`` when a leaf
+    is missing, extra or of another shape."""
     model = Transformer(cfg, device=device)
     seen = set()
     for name, p in model.named_parameters():
         parts = name.split(".")
         if parts[0] == "blocks":
             path = ("blocks",) + tuple(parts[2:])
-            arr = np.asarray(_leaf(tree, path))[int(parts[1])]
+            stacked = np.asarray(_leaf(tree, path, name))
+            if stacked.shape[:1] != (cfg.num_layers,):
+                raise ValueError(f"{name}: tree leaf of shape {stacked.shape}, the "
+                                 f"model wants {cfg.num_layers} stacked layers")
+            arr = stacked[int(parts[1])]
         else:
             path = tuple(parts)
-            arr = _leaf(tree, path)
+            arr = _leaf(tree, path, name)
         seen.add(path)
         t = _tensor(arr)
         if tuple(t.shape) != tuple(p.shape):
@@ -80,15 +90,23 @@ def _numpy(t: torch.Tensor) -> np.ndarray:
 def params_to_numpy(model: Transformer) -> Dict[str, Any]:
     """The reference's parameter tree of ``model``'s weights (``blocks``
     stacked along a leading layer axis); bfloat16 comes back as float32,
-    exactly (numpy has no bfloat16)."""
+    exactly (numpy has no bfloat16).  A layer's slice of a leaf its block
+    does not hold (the reference's unused ``moe`` or ``mlp``) is zeros."""
     tree: Dict[str, Any] = {name: _numpy(p) for name, p in model.named_parameters()
                             if not name.startswith("blocks.")}
+    layers = [dict(blk.named_parameters()) for blk in model.blocks]
+    first: Dict[str, torch.Tensor] = {}
+    for held in layers:
+        for name, p in held.items():
+            first.setdefault(name, p)
     blocks: Dict[str, Any] = {}
-    for name, _ in model.blocks[0].named_parameters():
+    for name, p in first.items():
         *path, last = name.split(".")
         node = blocks
         for key in path:
             node = node.setdefault(key, {})
-        node[last] = np.stack([_numpy(blk.get_parameter(name)) for blk in model.blocks])
+        zeros = np.zeros_like(_numpy(p))
+        node[last] = np.stack([_numpy(held[name]) if name in held else zeros
+                               for held in layers])
     tree["blocks"] = blocks
     return tree

@@ -23,7 +23,7 @@ sys.path.insert(0, {src!r})
 sys.path.insert(0, {root!r})
 import repro_torch, repro_torch.apps, repro_torch.core, repro_torch.kernels, repro_torch.obs
 import repro_torch.configs, repro_torch.models, repro_torch.launch.serve
-import repro_torch.models.offload, repro_torch.models.weights
+import repro_torch.models.offload, repro_torch.models.weights, repro_torch.models.moe
 import chip_smoke
 from repro_torch.core import Session
 s = Session("ooc", device="cpu", num_tiles=2, capacity_bytes=float("inf"))
@@ -85,17 +85,19 @@ def test_model_decode_never_falls_back_to_cpu():
     from repro_torch.launch import serve as launch_serve
     from repro_torch.models import init_cache, init_params
 
-    cfg = get_reduced_config("llama3_2_1b")
-    if torch.cuda.is_available():
-        model = init_params(cfg, generator=torch.Generator(device="cuda"))
-        assert model.embed.device.type == "cuda"
-    else:
-        with pytest.raises(RuntimeError, match="CUDA is not available"):
-            init_params(cfg, generator=torch.Generator())
-        with pytest.raises(RuntimeError, match="CUDA is not available"):
-            init_cache(cfg, 1, 4)
-        with pytest.raises(RuntimeError, match="CUDA is not available"):
-            launch_serve.main(["--arch", "llama3_2_1b", "--reduced", "--quiet"])
+    for arch in ("llama3_2_1b", "deepseek_v2_lite_16b"):     # dense, moe with MLA
+        cfg = get_reduced_config(arch)
+        if torch.cuda.is_available():
+            model = init_params(cfg, generator=torch.Generator(device="cuda"))
+            assert model.embed.device.type == "cuda"
+            assert init_cache(cfg, 1, 4)["k" if arch == "llama3_2_1b" else "ckv"].is_cuda
+        else:
+            with pytest.raises(RuntimeError, match="CUDA is not available"):
+                init_params(cfg, generator=torch.Generator())
+            with pytest.raises(RuntimeError, match="CUDA is not available"):
+                init_cache(cfg, 1, 4)
+            with pytest.raises(RuntimeError, match="CUDA is not available"):
+                launch_serve.main(["--arch", arch, "--reduced", "--quiet"])
 
 
 def test_chip_smoke_fails_without_a_card():
