@@ -12,6 +12,7 @@
     python3 chip_smoke.py --serve    # only phase 10 and the same two runs
     python3 chip_smoke.py --model    # only phase 11, model decode
     python3 chip_smoke.py --moe      # only phase 12, moe decode
+    python3 chip_smoke.py --ssm      # only phase 13, ssm, hybrid and encdec decode
 
 Phases, each of which asserts (any failure exits non-zero):
 
@@ -128,9 +129,10 @@ Phases, each of which asserts (any failure exits non-zero):
    step (at most 3 layer slices), uploaded bytes, H2D GB/s over copy-stream
    events and ms per step beside its link bound, the resident ms per token
    and the modelled step (P100 PCIe model); then ``python -m
-   repro_torch.launch.serve --arch llama3_2_1b --reduced`` on the card,
-   resident and ``--offload``, both exiting 0.  No hand-written kernel
-   launches (counts zeroed at the phase's start, read at its end);
+   repro_torch.launch.serve --arch llama3_2_1b --reduced`` on the card as
+   a subprocess, and the launcher's ``main`` with ``--offload`` in this
+   process, both exiting 0.  No hand-written kernel launches (counts
+   zeroed at the phase's start, read at its end);
 12. moe decode — Qwen3-MoE 30B-A3B (48 layers, d 2048, 32 heads over 4 KV
    heads, 128 experts top-8 of ff 768, vocabulary 151936, untied; 61.09 GB)
    and then DeepSeek-V2-Lite (27 layers, MLA with r 512, dn 128, dr 64, dv
@@ -146,13 +148,35 @@ Phases, each of which asserts (any failure exits non-zero):
    for the card's busy share; then the same widths at 2 layers in fp32
    (TF32 off), 4 teacher-forced steps on the card against the CPU, every
    layer's routing equal first (the smallest top-k gap printed), the
-   logits at rtol 1e-3 / atol 1e-5; then ``python -m
-   repro_torch.launch.serve --arch <arch> --reduced`` on the card for both
-   archs (exit 0) and with ``--offload`` (exit 2).  No hand-written kernel
-   launches.
+   logits at rtol 1e-3 / atol 1e-5; then the launcher's ``main(["--arch",
+   <arch>, "--reduced"])`` in this process on the card for both archs
+   (exit 0) and with ``--offload`` (exit 2).  No hand-written kernel
+   launches;
+13. ssm, hybrid and encdec decode — Mamba2 1.3B (48 Mamba-2 layers, d
+   2048, state 128, head dim 64, expand 2, conv 4, vocabulary 50280,
+   untied; 2.89 GB), Zamba2 1.2B (38 Mamba-2 layers of state 64 and one
+   shared attention+MLP block, 32 heads, ff 8192, after every 6th layer;
+   2.34 GB) and Whisper medium (24 encoder and 24 decoder layers, d 1024,
+   16 heads, ff 4096, vocabulary 51865; 2.02 GB) at their published
+   configs, seeded bf16 weights made on the card (``dt_bias``, ``a_log``,
+   ``d_skip`` fp32): each through the launcher's decode resident (batch 4,
+   a 32-token teacher-forced prefill, 32 greedy tokens; Whisper's encoder
+   K/V stubbed at 0.01 as the launcher stubs them), median ms a token
+   beside the byte bound of a step (the weights it reads, the hybrid's
+   shared block at each site, and the ssm and conv state read and
+   written), peak device memory, 4 steps under ``torch.profiler``; then an
+   fp32 copy at full depth (TF32 off): 4 teacher-forced steps on the card,
+   on the CPU and on the CPU in fp64, the card no farther from the fp64
+   run than twice the CPU's fp32 run (the card against the CPU at rtol
+   1e-3 / atol 1e-5 recorded), for Mamba2 and Zamba2 ``forward`` over the
+   prompt against 32 decode steps on the card (rtol 2e-2 / atol 2e-3, the
+   JAX package's test), for Whisper ``forward`` with seeded encoder inputs
+   (4, 32, 1024) held the same way as the steps; then the launcher's
+   ``main`` in this process on the three reduced archs (exit 0) and with
+   ``--offload`` (exit 2).  No hand-written kernel launches.
 
 Every line but the last two is a JSON record.  The line before the last
-JSON ``ok`` line lists every ported kernel (phases 7 to 12 launch none of
+JSON ``ok`` line lists every ported kernel (phases 7 to 13 launch none of
 them: the apps' loops and the models' layers are torch ops); the card's ``nvidia-smi`` name and power
 limit are printed on their own line before it.  The script
 imports nothing of JAX or of the JAX package.
@@ -1640,26 +1664,54 @@ def fp32_check(model, prompts: torch.Tensor) -> dict:
             "tolerance": FP32_TOL}
 
 
-def launcher_runs(smi: str, arch: str = MODEL_ARCH,
-                  modes=(([], 0), (["--offload"], 0))) -> None:
-    """``python -m repro_torch.launch.serve --arch <arch> --reduced`` on the
-    card (its default device) as subprocesses, once for each of ``modes``
-    (extra arguments, the exit code it must give)."""
+def launcher_subprocess(smi: str, arch: str, extra, rc: int) -> None:
+    """``python -m repro_torch.launch.serve --arch <arch> --reduced`` plus
+    ``extra`` on the card (its default device) as a subprocess, which must
+    exit ``rc``; its last line recorded."""
     root = Path(__file__).resolve().parent
     env = dict(os.environ, PYTHONPATH=os.pathsep.join(
         [str(root / "src")] + [p for p in [os.environ.get("PYTHONPATH")] if p]))
+    cmd = [sys.executable, "-m", "repro_torch.launch.serve", "--arch", arch,
+           "--reduced"] + list(extra)
+    t0 = time.perf_counter()
+    out = subprocess.run(cmd, capture_output=True, text=True, timeout=300,
+                         env=env, cwd=str(root))
+    check(out.returncode == rc, f"{' '.join(cmd[1:])} exited {out.returncode}, "
+          f"not {rc}: {out.stderr[-2000:]}")
+    lines = (out.stdout if rc == 0 else out.stderr).strip().splitlines()
+    emit(phase="model_launcher", args=cmd[3:], how="subprocess", rc=out.returncode,
+         seconds=time.perf_counter() - t0, line=lines[-1] if lines else "", card=smi)
+
+
+def launcher_runs(smi: str, arch: str, modes) -> None:
+    """The launcher's ``main(["--arch", arch, "--reduced"] + extra)`` in this
+    process, on the card (its default device), once for each of ``modes``
+    (extra arguments, the exit code it must give): resident runs must end
+    with the decode line naming the arch, refused ones (2) with the
+    launcher's reason; each last line recorded.  In-process, a call costs
+    no interpreter start-up (about 10 s a subprocess)."""
+    import contextlib
+    import io
+
+    from repro_torch.configs import get_reduced_config
+    from repro_torch.launch import serve as launch_serve
+
+    name = get_reduced_config(arch).name
     for extra, rc in modes:
-        cmd = [sys.executable, "-m", "repro_torch.launch.serve", "--arch", arch,
-               "--reduced"] + extra
+        argv = ["--arch", arch, "--reduced"] + list(extra)
+        out, err = io.StringIO(), io.StringIO()
         t0 = time.perf_counter()
-        out = subprocess.run(cmd, capture_output=True, text=True, timeout=300,
-                             env=env, cwd=str(root))
-        check(out.returncode == rc, f"{' '.join(cmd[1:])} exited {out.returncode}, "
-              f"not {rc}: {out.stderr[-2000:]}")
-        lines = (out.stdout if rc == 0 else out.stderr).strip().splitlines()
-        emit(phase="model_launcher", args=cmd[3:], rc=out.returncode,
-             seconds=time.perf_counter() - t0, line=lines[-1] if lines else "",
-             card=smi)
+        with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+            got = launch_serve.main(argv)
+        lines = (out if rc == 0 else err).getvalue().strip().splitlines()
+        line = lines[-1] if lines else ""
+        check(got == rc, f"launch.serve.main({argv}) returned {got}, not {rc}: "
+              f"{err.getvalue()[-2000:]}")
+        check(line.startswith(f"arch={name} ") if rc == 0
+              else "--offload supports dense/vlm families" in line,
+              f"launch.serve.main({argv}) ended with {line!r}")
+        emit(phase="model_launcher", args=argv, how="in-process", rc=got,
+             seconds=time.perf_counter() - t0, line=line, card=smi)
 
 
 def model_phase(smi: str, batch: int = 4, prompt_len: int = 32, gen_tokens: int = 32) -> None:
@@ -1668,8 +1720,8 @@ def model_phase(smi: str, batch: int = 4, prompt_len: int = 32, gen_tokens: int 
     ``StreamedDecoder`` of MODEL_WINDOW slots (every step's logits and
     tokens equal to the resident run's, the device bytes of the slots
     measured), an fp32 check of the card against the CPU, and the
-    launcher's two modes as subprocesses.  No hand-written kernel may
-    launch."""
+    launcher resident as a subprocess and streamed in-process.  No
+    hand-written kernel may launch."""
     from repro_torch.configs import get_config
     from repro_torch.models import init_cache, init_params
     from repro_torch.models.offload import StreamedDecoder
@@ -1757,7 +1809,8 @@ def model_phase(smi: str, batch: int = 4, prompt_len: int = 32, gen_tokens: int 
         gc.collect()
         torch.cuda.empty_cache()
     release_pinned_cache()
-    launcher_runs(smi)
+    launcher_subprocess(smi, MODEL_ARCH, [], 0)
+    launcher_runs(smi, MODEL_ARCH, ((["--offload"], 0),))
     launches = _kernel_launches()
     check(all(v == 0 for v in launches.values()),
           f"model decode launches no hand-written kernel: {launches}")
@@ -1871,18 +1924,18 @@ def moe_fp32_check(cfg, prompts: torch.Tensor, device: str = "cuda") -> dict:
             "tolerance": FP32_TOL}
 
 
-def moe_profile(arch: str, model, prompts: torch.Tensor, smi: str,
-                steps: int = MOE_PROFILED_STEPS) -> None:
-    """``steps`` teacher-forced decode steps from a fresh cache under
-    ``torch.profiler`` (device activity only; after two unprofiled steps):
-    the card's busy and idle share of the host's wall, and the kernels that
-    took its time.  The profiler slows the host, so the wall here is above
-    the unprofiled runs'."""
+def decode_profile(phase: str, arch: str, model, cache, prompts: torch.Tensor, smi: str,
+                   steps: int = MOE_PROFILED_STEPS) -> None:
+    """``steps`` teacher-forced decode steps on ``cache``, a fresh one of at
+    least ``steps + 2`` positions, under ``torch.profiler`` (device activity
+    only; after two unprofiled steps): the card's busy and idle share of the
+    host's wall, and the kernels that took its time, as a ``phase`` record.
+    The profiler slows the host, so the wall here is above the unprofiled
+    runs'."""
     from torch.profiler import ProfilerActivity, profile
 
-    from repro_torch.models import decode_step, init_cache
+    from repro_torch.models import decode_step
 
-    cache = init_cache(model.cfg, prompts.shape[0], steps + 2, device="cuda")
     for i in range(2):
         decode_step(model, cache, prompts[:, i])
     torch.cuda.synchronize()
@@ -1893,7 +1946,7 @@ def moe_profile(arch: str, model, prompts: torch.Tensor, smi: str,
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     busy_s, work_s, count, top = device_activity(prof)
-    emit(phase="moe_profile", arch=arch, steps=steps, wall_s=wall,
+    emit(phase=phase, arch=arch, steps=steps, wall_s=wall,
          ms_per_step=wall / steps * 1e3, device_busy_ms_per_step=busy_s / steps * 1e3,
          device_idle_share=1 - busy_s / wall, device_work_s=work_s,
          device_activities_per_step=count / steps, top_device_ms=top, card=smi)
@@ -1969,7 +2022,9 @@ def moe_decode(arch: str, smi: str, batch: int, prompt_len: int, gen_tokens: int
              cache_bytes_per_token_layer=per_token_layer,
              sample=want["tokens"][0, :8].tolist(), card=smi)
         if device == "cuda":
-            moe_profile(arch, model, prompts, smi)
+            decode_profile("moe_profile", arch, model,
+                           init_cache(cfg, batch, MOE_PROFILED_STEPS + 2, device=device),
+                           prompts, smi)
         del model, cache, want, again
         gc.collect()
         torch.cuda.empty_cache()
@@ -1999,11 +2054,259 @@ def moe_phase(smi: str, batch: int = 4, prompt_len: int = 32, gen_tokens: int = 
     for arch in MOE_PUBLISHED:
         moe_decode(arch, smi, batch, prompt_len, gen_tokens)
     for arch in MOE_PUBLISHED:
-        launcher_runs(smi, arch, modes=(([], 0), (["--offload"], 2)))
+        launcher_runs(smi, arch, (([], 0), (["--offload"], 2)))
     launches = _kernel_launches()
     check(all(v == 0 for v in launches.values()),
           f"moe decode launches no hand-written kernel: {launches}")
     emit(phase="moe_done", seconds=time.perf_counter() - t_phase, launches=launches,
+         card=smi)
+
+
+# -- phase 13: ssm, hybrid and encdec decode ------------------------------------------
+
+# Each arch's published widths: family, layers, encoder layers, d, heads, KV
+# heads, ff, vocabulary, tied embeddings, ssm state, head dim, expand, conv,
+# shared-block cadence.
+SSM_PUBLISHED = {
+    "mamba2_1_3b": ("ssm", 48, 0, 2048, 1, 1, 0, 50280, False, 128, 64, 2, 4, 0),
+    "zamba2_1_2b": ("hybrid", 38, 0, 2048, 32, 32, 8192, 32000, False, 64, 64, 2, 4, 6),
+    "whisper_medium": ("encdec", 24, 24, 1024, 16, 16, 4096, 51865, False, 0, 64, 2, 4, 0),
+}
+SSM_SEED = 0
+INC_TOL = dict(rtol=2e-2, atol=2e-3)      # tests/test_models.py's incremental-vs-full
+# At full depth the ssm stacks' fp32 rounding grows past FP32_TOL on the CPU
+# itself (Mamba2's 48 layers: the CPU's fp32 logits 1.7e-4 from an fp64 run,
+# the card's 1.1e-4), so the card is held against an fp64 run instead: no
+# farther from it than this many times the CPU's fp32 run.
+FP64_RATIO = 2.0
+
+
+def _ssm_published(cfg) -> tuple:
+    return (cfg.family, cfg.num_layers, cfg.enc_layers, cfg.d_model, cfg.num_heads,
+            cfg.kv_heads, cfg.d_ff, cfg.vocab_size, cfg.tie_embeddings, cfg.ssm_state,
+            cfg.ssm_headdim, cfg.ssm_expand, cfg.ssm_conv, cfg.shared_attn_every)
+
+
+def fresh_cache(cfg, batch: int, max_len: int, device, enc_len: int):
+    """The launcher's cache: for encdec, ``enc_len`` encoder positions of
+    K/V stubbed at 0.01, as ``launch/serve.py`` (and the reference's) fill them."""
+    from repro_torch.models import init_cache
+
+    cache = init_cache(cfg, batch, max_len, enc_len=enc_len, device=device)
+    if cfg.encdec:
+        cache["enc_k"].fill_(0.01)
+        cache["enc_v"].fill_(0.01)
+    return cache
+
+
+def _nbytes(tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def ssm_step_bytes(model, batch: int) -> dict:
+    """The bytes one decode step of ``model`` must move: each weight it reads
+    once (the embedding table's ``batch`` rows; the hybrid's shared block at
+    each of its sites; for encdec the decoder without its cross-attention's
+    ``wk``/``wv``, whose products the cached ``enc_k``/``enc_v`` hold, and no
+    encoder weight), and the ssm and conv states, read and written.  The
+    attention caches' reads (under 1.3% here) are left out."""
+    cfg = model.cfg
+    weights = (_nbytes(model.parameters()) - _nbytes([model.embed])
+               + batch * cfg.d_model * model.embed.element_size())
+    if cfg.family == "hybrid":
+        sites = cfg.num_layers // cfg.shared_attn_every
+        weights += (sites - 1) * _nbytes(model.shared_block.parameters())
+    if cfg.family == "encdec":
+        weights -= (_nbytes(model.enc_blocks.parameters()) + _nbytes([model.enc_norm])
+                    + _nbytes(t for b in model.blocks for t in (b.xattn.wk, b.xattn.wv)))
+    state = 0
+    if cfg.family in ("ssm", "hybrid"):
+        es = model.embed.element_size()
+        state = 2 * cfg.num_layers * batch * (
+            cfg.ssm_heads * cfg.ssm_headdim * cfg.ssm_state * 4
+            + (cfg.ssm_conv - 1) * (cfg.d_inner + 2 * cfg.ssm_state) * es)
+    return {"weights": weights, "state": state, "total": weights + state}
+
+
+def family_fp32_check(model, prompts: torch.Tensor, enc_inputs=None,
+                      device: str = "cuda") -> dict:
+    """An fp32 copy of ``model`` at full depth (TF32 off), run three ways:
+    on ``device``, on the CPU, and on the CPU with fp64 weights and
+    activations (the port keeps fp32 inside its norms, rope, attention and
+    scan, so this run is more precise, not exact).  Each runs the
+    launcher's teacher-forced decode (on ``device``, ssm and hybrid: over
+    the whole prompt, and ``forward`` over the prompt held against those
+    steps at INC_TOL, the chunked scan against the recurrence; otherwise
+    FP32_STEPS steps), and encdec its ``forward`` with ``enc_inputs``.
+
+    The card's first FP32_STEPS steps (and encdec's forward) are held
+    against the fp64 run: at most FP64_RATIO times as far from it as the
+    CPU's fp32 run is (``as_accurate_as_cpu``).  The card against the CPU
+    at FP32_TOL is recorded as ``within_tolerance``."""
+    import copy
+
+    from repro_torch.models import decode_step, forward
+
+    B, P = prompts.shape
+    tf32 = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    out = {}
+    cfg = model.cfg.with_(dtype="float32")
+    scan = cfg.family in ("ssm", "hybrid")
+    try:
+        m = None
+        for role, dev, dtype in (("card", device, torch.float32),
+                                 ("cpu", "cpu", torch.float32),
+                                 ("fp64", "cpu", torch.float64)):
+            t0 = time.perf_counter()
+            if role == "fp64":
+                m = m.double()
+            else:       # the bf16 weights copied to ``dev``, then cast there
+                m = None    # the card's copy goes first
+                m = copy.deepcopy(model).to(dev).float()
+                m.cfg = cfg
+            copy_s = time.perf_counter() - t0
+            n = P if scan and role == "card" else FP32_STEPS
+            cache = fresh_cache(cfg, B, n, dev, enc_len=P)
+            t0 = time.perf_counter()
+            steps = [decode_step(m, cache, prompts[:, i].to(dev))[0] for i in range(n)]
+            rec = {"steps": torch.stack(steps, 1).cpu().double()}
+            if scan and role == "card":
+                rec["forward"] = forward(m, prompts).cpu().double()
+            if cfg.encdec:
+                rec["forward"] = forward(m, prompts.to(dev),
+                                         enc_inputs=enc_inputs.to(dev, dtype)).cpu().double()
+            rec["s"] = time.perf_counter() - t0
+            rec["copy_s"] = copy_s
+            out[role] = rec
+            del cache, steps
+        del m
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
+
+    def maxdiff(a, b) -> float:
+        return float((a - b).abs().max())
+
+    card, cpu, ref = (out[r]["steps"][:, :FP32_STEPS] for r in ("card", "cpu", "fp64"))
+    res = {"steps": FP32_STEPS,
+           "max_abs_diff": maxdiff(card, cpu),
+           "max_abs_diff_per_step": [maxdiff(card[:, i], cpu[:, i]) for i in range(FP32_STEPS)],
+           "max_abs_logit": float(ref.abs().max()),
+           "within_tolerance": bool(torch.allclose(card, cpu, **FP32_TOL)),
+           "tolerance": FP32_TOL,
+           "card_vs_fp64": maxdiff(card, ref), "cpu_vs_fp64": maxdiff(cpu, ref),
+           "as_accurate_as_cpu": maxdiff(card, ref) <= FP64_RATIO * maxdiff(cpu, ref),
+           "fp64_ratio": FP64_RATIO,
+           "card_s": out["card"]["s"], "cpu_s": out["cpu"]["s"], "fp64_s": out["fp64"]["s"],
+           "copy_s": {r: out[r]["copy_s"] for r in out}}
+    if scan:
+        full, inc = out["card"]["forward"], out["card"]["steps"]
+        res.update(forward_vs_decode_steps=P,
+                   forward_vs_decode_max_abs_diff=maxdiff(full, inc),
+                   forward_vs_decode_ok=bool(torch.allclose(full, inc, **INC_TOL)),
+                   forward_vs_decode_tolerance=INC_TOL)
+    if cfg.encdec:
+        a, b, r = (out[k]["forward"] for k in ("card", "cpu", "fp64"))
+        res.update(forward_shape=list(a.shape), enc_inputs_shape=list(enc_inputs.shape),
+                   forward_max_abs_diff=maxdiff(a, b), forward_max_abs_logit=float(r.abs().max()),
+                   forward_within_tolerance=bool(torch.allclose(a, b, **FP32_TOL)),
+                   forward_card_vs_fp64=maxdiff(a, r), forward_cpu_vs_fp64=maxdiff(b, r),
+                   forward_ok=maxdiff(a, r) <= FP64_RATIO * maxdiff(b, r))
+    return res
+
+
+def ssm_decode(arch: str, smi: str, batch: int, prompt_len: int, gen_tokens: int,
+               device: str = "cuda") -> None:
+    """One ssm, hybrid or encdec arch at its published config, seeded bf16
+    weights made on the card: the launcher's decode resident (encdec's
+    encoder K/V stubbed as the launcher stubs them), its ms a token beside
+    the byte bound of a step, 4 profiled steps, then the fp32 checks.
+    (``device`` is the card; the CPU test of this phase passes ``"cpu"``.)"""
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_params
+
+    cfg = get_config(arch)
+    check(_ssm_published(cfg) == SSM_PUBLISHED[arch] and cfg.dtype == "bfloat16",
+          f"{arch} is at its published config")
+    max_len = prompt_len + gen_tokens
+    gc.collect()
+    torch.cuda.empty_cache()
+    with torch.inference_mode():
+        torch.cuda.reset_peak_memory_stats()
+        gen = torch.Generator(device=device).manual_seed(SSM_SEED)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        model = init_params(cfg, generator=gen, device=device)
+        prompts = torch.randint(0, cfg.vocab_size, (batch, prompt_len), generator=gen,
+                                device=device)
+        enc_inputs = (torch.randn((batch, prompt_len, cfg.d_model), generator=gen,
+                                  device=device) if cfg.encdec else None)
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        n_params = sum(p.numel() for p in model.parameters())
+        fp32_params = sum(p.numel() for p in model.parameters() if p.dtype == torch.float32)
+        step = ssm_step_bytes(model, batch)
+        cache = fresh_cache(cfg, batch, max_len, device, enc_len=prompt_len)
+        cache_bytes = {k: _nbytes([v]) for k, v in cache.items() if k != "len"}
+        want = resident_decode(model, cache, prompts, gen_tokens)
+        check(all(bool(torch.isfinite(lg).all()) for lg in want["logits"]),
+              f"{arch}: resident logits are finite")
+        check(want["logits"][0].dtype == torch.bfloat16, "bf16 logits")
+        check(cache["len"] == max_len - 1, f"{arch}: cache len {cache['len']}")
+        peak = torch.cuda.max_memory_allocated()
+        ms = statistics.median(want["ms"])
+        bound_ms = step["total"] / PEAK_BYTES_S * 1e3
+        emit(phase="ssm_resident", arch=arch, family=cfg.family, params=n_params,
+             params_config=cfg.param_count(), fp32_params=fp32_params,
+             weight_bytes=_nbytes(model.parameters()), batch=batch,
+             prompt_len=prompt_len, gen_tokens=gen_tokens, init_s=init_s,
+             prefill_s=want["prefill_s"], decode_ms_per_token_median=ms,
+             decode_ms_per_token=want["ms"], tokens_per_s=batch * 1e3 / ms,
+             decode_wall_s=want["decode_wall_s"], bytes_bound=step,
+             bytes_bound_ms=bound_ms, over_bound=ms / bound_ms, cache_bytes=cache_bytes,
+             peak_device_bytes=peak, sample=want["tokens"][0, :8].tolist(), card=smi)
+        if device == "cuda":
+            decode_profile("ssm_profile", arch, model,
+                           fresh_cache(cfg, batch, MOE_PROFILED_STEPS + 2, device,
+                                       enc_len=prompt_len), prompts, smi)
+        del cache, want
+        t0 = time.perf_counter()
+        fp32 = family_fp32_check(model, prompts, enc_inputs, device)
+        emit(phase="ssm_fp32", arch=arch, **fp32, seconds=time.perf_counter() - t0, card=smi)
+        del model
+        gc.collect()
+        torch.cuda.empty_cache()
+    check(fp32["as_accurate_as_cpu"], f"{arch}: fp32 logits on the card "
+          f"{fp32['card_vs_fp64']} from the fp64 run, the CPU's {fp32['cpu_vs_fp64']}")
+    if "forward_vs_decode_ok" in fp32:
+        check(fp32["forward_vs_decode_ok"], f"{arch}: fp32 forward against decode on the "
+              f"card: max diff {fp32['forward_vs_decode_max_abs_diff']}")
+    if "forward_ok" in fp32:
+        check(fp32["forward_ok"], f"{arch}: fp32 forward on the card "
+              f"{fp32['forward_card_vs_fp64']} from the fp64 run, the CPU's "
+              f"{fp32['forward_cpu_vs_fp64']}")
+
+
+def ssm_phase(smi: str, batch: int = 4, prompt_len: int = 32, gen_tokens: int = 32) -> None:
+    """Mamba2 1.3B, Zamba2 1.2B and Whisper medium at their published
+    configs, one after the other (``ssm_decode``), then the launcher in
+    process on each reduced arch (resident exits 0, ``--offload`` 2).  No
+    hand-written kernel may launch."""
+    t_phase = time.perf_counter()
+    release_pinned_cache()
+    for ops_fn in (ops.stencil2d, ops.stencil3d, ops.chain2d):
+        ops_fn.launches = 0
+    emit(phase="ssm_start", allocated=torch.cuda.memory_allocated(),
+         reserved=torch.cuda.memory_reserved(), card=smi)
+    for arch in SSM_PUBLISHED:
+        ssm_decode(arch, smi, batch, prompt_len, gen_tokens)
+    for arch in SSM_PUBLISHED:
+        launcher_runs(smi, arch, (([], 0), (["--offload"], 2)))
+    launches = _kernel_launches()
+    check(all(v == 0 for v in launches.values()),
+          f"ssm, hybrid and encdec decode launch no hand-written kernel: {launches}")
+    emit(phase="ssm_done", seconds=time.perf_counter() - t_phase, launches=launches,
          card=smi)
 
 
@@ -2085,6 +2388,8 @@ def main() -> int:
                     help="only phase 11, model decode (no result line)")
     ap.add_argument("--moe", action="store_true",
                     help="only phase 12, moe decode (no result line)")
+    ap.add_argument("--ssm", action="store_true",
+                    help="only phase 13, ssm, hybrid and encdec decode (no result line)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on a GPU",
@@ -2114,6 +2419,9 @@ def main() -> int:
     if args.moe:
         moe_phase(smi)
         return 0
+    if args.ssm:
+        ssm_phase(smi)
+        return 0
     build_phase()
     path = kernels_phase(n2d, n3d, reps)
     launches = kernel_path_phase(n2d, n3d)
@@ -2134,6 +2442,7 @@ def main() -> int:
     gc.collect()
     model_phase(smi)
     moe_phase(smi)
+    ssm_phase(smi)
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": SOURCES[name][0],
          "replaces": SOURCES[name][1], "launches": launches[name],

@@ -5,8 +5,8 @@ Every full config matches the assignment block verbatim; deviations/notes
 live in DESIGN.md §Arch-applicability.
 
 Copied, with the ten ``<arch>.py`` files, from ``src/repro/configs/``.  Every
-family's config is here; the port's model substrate runs the dense, vlm and moe
-families (``repro_torch.models.transformer``).
+family's config is here, and the port's model substrate runs every family
+(``repro_torch.models.transformer``).
 """
 from __future__ import annotations
 

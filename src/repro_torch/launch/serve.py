@@ -11,10 +11,13 @@ layer slices on the device at any point::
     python -m repro_torch.launch.serve --arch llama3_2_1b --reduced --device cpu \\
         --offload
 
-The dense, vlm and moe families run (moe resident only: ``--offload`` on a
-moe arch exits 2, as the reference's launcher does); the others exit 2 and
-name the ROADMAP item that ports them.  The printed ``modelled`` step time is the P100 PCIe
-ledger model (``hw`` ``p100-pcie``), not a measurement.
+Every family runs resident; ``--offload`` streams the dense and vlm
+families and exits 2 on the others (moe, ssm, hybrid, encdec), as the
+reference's launcher does.  Encdec keeps the reference's stubbed frontend:
+its cross-attention caches ``enc_k``/``enc_v`` (``--prompt-len`` positions)
+are filled with 0.01, not computed by an encoder pass.  The printed
+``modelled`` step time is the P100 PCIe ledger model (``hw``
+``p100-pcie``), not a measurement.
 
 The ``stencil`` subcommand runs the multi-tenant
 :class:`repro_torch.serve.StencilServer`: N CloverLeaf 2D tenants submitted
@@ -126,13 +129,11 @@ def main(argv=None) -> int:
     from repro_torch.core.device import resolve_device
     from repro_torch.models import decode_step, init_cache, init_params
     from repro_torch.models.offload import STREAMED_FAMILIES, StreamedDecoder
-    from repro_torch.models.transformer import check_family
 
     try:
         cfg = (get_reduced_config(args.arch) if args.reduced
                else get_config(args.arch))
-        check_family(cfg)
-    except (KeyError, NotImplementedError) as e:
+    except KeyError as e:
         print(f"repro_torch.launch.serve: {e}", file=sys.stderr)
         return 2
     if args.offload and cfg.family not in STREAMED_FAMILIES:
@@ -146,7 +147,11 @@ def main(argv=None) -> int:
     max_len = args.prompt_len + args.gen_tokens
     prompts = torch.randint(0, cfg.vocab_size, (B, args.prompt_len),
                             generator=gen, device=dev)
-    cache = init_cache(cfg, B, max_len, device=dev)
+    cache = init_cache(cfg, B, max_len, enc_len=args.prompt_len, device=dev)
+    if cfg.encdec:
+        # the stubbed frontend, as the reference's: constant encoder K/V
+        cache["enc_k"].fill_(0.01)
+        cache["enc_v"].fill_(0.01)
 
     streamer = None
     if args.offload:

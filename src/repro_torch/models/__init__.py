@@ -1,9 +1,10 @@
-"""LM model substrate of the port: the dense, vlm and moe families of the JAX
-package's ``repro.models`` (config, layers, attention with MLA, moe,
+"""LM model substrate of the port: every family of the JAX package's
+``repro.models`` (dense, vlm, moe, ssm, hybrid, encdec: config, layers,
+attention with MLA, moe, the Mamba-2 scan and decode in ``ssm``,
 transformer), the weights carried across from its parameter trees, and
 layer-weight streaming for serving the dense and vlm families
-(``offload.StreamedDecoder``).  The ssm, hybrid and encdec families,
-training and sharding are later slices (ROADMAP A14)."""
+(``offload.StreamedDecoder``).  Training and sharding are later slices
+(ROADMAP A14)."""
 from .config import ModelConfig
 from .transformer import (
     CacheFullError,

@@ -1,5 +1,5 @@
-"""Model assembly for the dense, vlm and moe families: init, forward
-(prefill) and decode_step (serving).
+"""Model assembly for every family: init, forward (prefill) and decode_step
+(serving).
 
 Ported from ``src/repro/models/transformer.py``, as ``nn.Module``s that keep
 the reference's layouts, so that weights carry across without a transpose
@@ -8,9 +8,12 @@ the reference's layouts, so that weights carry across without a transpose
 ``w_q`` is ``(d, H, dn + dr)``, ``w_dkv`` ``(d, r + dr)``, ``w_uk``/``w_uv``
 ``(r, H, dn/dv)``; the MLP's ``w_gate/w_up`` are ``(d, ff)`` and ``w_down``
 ``(ff, d)``; a MoE layer's experts stack them along a leading expert axis,
-and its router is ``(d, E)`` in fp32 whatever the model's dtype.  The
-reference stacks the layers along a leading axis for ``lax.scan``; here they
-are a ``ModuleList`` run in a Python loop.
+and its router is ``(d, E)`` in fp32 whatever the model's dtype; a Mamba-2
+mixer's ``in_proj`` is ``(d, 2di + 2N + H)``, ``conv_w`` ``(K, di + 2N)``,
+``out_proj`` ``(di, d)``, and its ``dt_bias``, ``a_log`` and ``d_skip``
+``(H,)`` are fp32 whatever the model's dtype.  The reference stacks the
+layers along a leading axis for ``lax.scan``; here they are a
+``ModuleList`` run in a Python loop.
 
 Families:
   dense   — pre-norm GQA + SwiGLU (llama/qwen/granite/tinyllama)
@@ -18,21 +21,30 @@ Families:
             embeddings from the (stubbed) vision frontend
   moe     — GQA or MLA attention + routed experts (qwen3-moe, deepseek-v2);
             the first ``first_dense_layers`` layers run a dense MLP
+  ssm     — a Mamba-2 stack (mamba2-1.3b), ``models/ssm.py``
+  hybrid  — Mamba-2 layers + one shared attention+MLP block applied after
+            every ``shared_attn_every``-th layer (zamba2)
+  encdec  — whisper: a bidirectional encoder without rope and a causal
+            decoder with cross-attention, sinusoidal positions on both
 
 A moe block holds only what its layer runs: ``mlp`` in the first
 ``first_dense_layers`` layers and ``moe`` in the others.  The reference gives
 every layer both (one ``lax.scan`` covers the stack and ``lax.cond`` picks
 one), which at DeepSeek-V2-Lite's widths is 2.3 B parameters never read.
 
-Every other family raises ``NotImplementedError`` naming the ROADMAP item
-that ports it.  ``forward``'s ``mesh`` and ``remat`` are left out (sharding
-and training are later slices), and so is ``loss_fn``.
+``forward``'s ``mesh`` and ``remat`` are left out (sharding and training are
+later slices), and so is ``loss_fn``.  Encdec decode reads ``enc_k``/
+``enc_v`` as already-projected K/V that the caller fills, as in the
+reference, whose launcher stubs them; neither package computes them from an
+encoder pass.
 
 Decode differs from the reference in one place on purpose: the caches (K/V,
-or MLA's ``ckv``/``kr``) are written in place at ``cache["len"]``, and a step
-at ``len >= max_len`` raises ``CacheFullError`` where the reference's
-``lax.dynamic_update_slice`` clamps its start and silently overwrites the
-last slot (ROADMAP fault C4).
+MLA's ``ckv``/``kr``, the hybrid's shared ``sk``/``sv``, the ssm and conv
+states) are written in place, and a step at ``len >= max_len`` raises
+``CacheFullError`` before any of them is written, where the reference's
+``lax.dynamic_update_slice`` (and encdec's position slice) clamps its start
+and silently overwrites the last slot (ROADMAP fault C4).  A pure ssm cache
+has no length, in either package: it decodes past ``max_len``.
 """
 from __future__ import annotations
 
@@ -45,25 +57,15 @@ from torch import nn
 from ..core.device import DeviceSpec, resolve_device
 from .attention import decode_attention, flash_attention, mla_decode_attention, mla_expand
 from .config import ModelConfig
-from .layers import apply_rope, dense_init, embed_init, rms_norm, swiglu
+from .layers import apply_rope, dense_init, embed_init, rms_norm, sinusoidal_positions, swiglu
 from .moe import moe_ffn
+from .ssm import mamba2_decode, mamba2_forward
 
-# The families this port runs, and the ROADMAP item that ports each other one.
-FAMILIES = ("dense", "vlm", "moe")
-_LATER = {"ssm": "A14(c)", "hybrid": "A14(c)", "encdec": "A14(c)"}
+FAMILIES = ("dense", "vlm", "moe", "ssm", "hybrid", "encdec")
 
 
 class CacheFullError(IndexError):
     """A decode step at ``len >= max_len``: the cache has no slot left."""
-
-
-def check_family(cfg: ModelConfig) -> None:
-    """Raise unless ``cfg`` is of a family this port runs (dense, vlm, moe)."""
-    if cfg.family not in FAMILIES:
-        item = _LATER.get(cfg.family, "A14")
-        raise NotImplementedError(
-            f"{cfg.name}: the {cfg.family} family is not ported yet (ROADMAP {item}); "
-            f"repro_torch.models runs the dense, vlm and moe families")
 
 
 def _weight(shape, dtype: torch.dtype, device: torch.device) -> nn.Parameter:
@@ -130,10 +132,11 @@ class Block(nn.Module):
     """ln1, ln2, attn (``MLAAttention`` when the config has MLA, else GQA
     ``Attention`` with ``wq/wk/wv/wo`` and optional ``bq/bk/bv``), and the
     FFN its layer runs: ``mlp`` of width ``dense_d_ff or d_ff`` when
-    ``dense``, else ``moe``."""
+    ``dense``, else ``moe``.  An encdec decoder block (``cross``) also holds
+    ``ln_x`` and ``xattn``, the cross-attention over the encoder."""
 
     def __init__(self, cfg: ModelConfig, dtype: torch.dtype, device: torch.device,
-                 dense: bool = True):
+                 dense: bool = True, cross: bool = False):
         super().__init__()
         self.ln1 = _weight((cfg.d_model,), dtype, device)
         self.ln2 = _weight((cfg.d_model,), dtype, device)
@@ -142,28 +145,74 @@ class Block(nn.Module):
             self.mlp = MLP(cfg, dtype, device, ff=cfg.dense_d_ff or cfg.d_ff)
         else:
             self.moe = MoE(cfg, dtype, device)
+        if cross:
+            self.ln_x = _weight((cfg.d_model,), dtype, device)
+            self.xattn = Attention(cfg, dtype, device)
+
+
+class Mamba(nn.Module):
+    """The Mamba-2 mixer: ``in_proj``, ``conv_w``, ``conv_b``, ``norm``,
+    ``out_proj`` in the model's dtype; ``dt_bias``, ``a_log`` and ``d_skip``
+    in fp32."""
+
+    def __init__(self, cfg: ModelConfig, dtype: torch.dtype, device: torch.device):
+        super().__init__()
+        d, di, N, H = cfg.d_model, cfg.d_inner, cfg.ssm_state, cfg.ssm_heads
+        conv_ch = di + 2 * N
+        self.in_proj = _weight((d, 2 * di + 2 * N + H), dtype, device)
+        self.conv_w = _weight((cfg.ssm_conv, conv_ch), dtype, device)
+        self.conv_b = _weight((conv_ch,), dtype, device)
+        self.dt_bias = _weight((H,), torch.float32, device)
+        self.a_log = _weight((H,), torch.float32, device)
+        self.d_skip = _weight((H,), torch.float32, device)
+        self.norm = _weight((di,), dtype, device)
+        self.out_proj = _weight((di, d), dtype, device)
+
+
+class MambaBlock(nn.Module):
+    """``ln`` and ``mamba``: one layer of the ssm and hybrid families."""
+
+    def __init__(self, cfg: ModelConfig, dtype: torch.dtype, device: torch.device):
+        super().__init__()
+        self.ln = _weight((cfg.d_model,), dtype, device)
+        self.mamba = Mamba(cfg, dtype, device)
 
 
 class Transformer(nn.Module):
     """embed, final_norm, ``blocks``, and ``lm_head`` unless the config ties
-    its embeddings (the head is then ``embed.T``).  Parameters are allocated
-    uninitialised on ``device``; ``init_params`` or
-    ``weights.params_from_numpy`` fills them."""
+    its embeddings (the head is then ``embed.T``).  ``blocks`` are
+    ``MambaBlock``s in the ssm and hybrid families, and the hybrid adds
+    ``shared_block``, one dense ``Block``; encdec adds ``enc_blocks`` (dense
+    ``Block``s) and ``enc_norm``, and its decoder ``blocks`` hold
+    cross-attention.  Parameters are allocated uninitialised on ``device``;
+    ``init_params`` or ``weights.params_from_numpy`` fills them."""
 
     def __init__(self, cfg: ModelConfig, *, device: DeviceSpec = "cuda"):
         super().__init__()
-        check_family(cfg)
+        if cfg.family not in FAMILIES:
+            raise ValueError(f"{cfg.name}: unknown family {cfg.family!r}")
         dev = resolve_device(device)
         dt = cfg.torch_dtype
+        L = cfg.num_layers
         self.cfg = cfg
         self.embed = _weight((cfg.vocab_size, cfg.d_model), dt, dev)
         self.final_norm = _weight((cfg.d_model,), dt, dev)
         if not cfg.tie_embeddings:
             self.lm_head = _weight((cfg.d_model, cfg.vocab_size), dt, dev)
-        # Every layer is dense but a moe model's after its first_dense_layers.
-        self.blocks = nn.ModuleList(
-            Block(cfg, dt, dev, dense=cfg.family != "moe" or li < cfg.first_dense_layers)
-            for li in range(cfg.num_layers))
+        if cfg.family in ("ssm", "hybrid"):
+            self.blocks = nn.ModuleList(MambaBlock(cfg, dt, dev) for _ in range(L))
+            if cfg.family == "hybrid":
+                self.shared_block = Block(cfg, dt, dev)
+        elif cfg.family == "encdec":
+            self.enc_blocks = nn.ModuleList(Block(cfg, dt, dev)
+                                            for _ in range(cfg.enc_layers))
+            self.enc_norm = _weight((cfg.d_model,), dt, dev)
+            self.blocks = nn.ModuleList(Block(cfg, dt, dev, cross=True) for _ in range(L))
+        else:
+            # Every layer is dense but a moe model's after its first_dense_layers.
+            self.blocks = nn.ModuleList(
+                Block(cfg, dt, dev, dense=cfg.family != "moe" or li < cfg.first_dense_layers)
+                for li in range(L))
 
 
 # =============================== init =========================================
@@ -196,14 +245,49 @@ def _init_mlp(m: MLP, g: torch.Generator) -> None:
     m.w_down.copy_(dense_init(g, m.w_down.shape, dt, scale=1.0 / np.sqrt(ff)))
 
 
+def _init_block(blk: Block, cfg: ModelConfig, g: torch.Generator) -> None:
+    """The reference's dense block (or moe layer): norms, attention, FFN."""
+    blk.ln1.fill_(1)
+    blk.ln2.fill_(1)
+    if isinstance(blk.attn, MLAAttention):
+        _init_mla(blk.attn, cfg, g)
+    else:
+        _init_attn(blk.attn, cfg, g)
+    if hasattr(blk, "moe"):
+        blk.moe.router.copy_(dense_init(g, blk.moe.router.shape, torch.float32))
+        # dense_init takes the fan-in from the first axis: for the
+        # stacked experts that is E, as in the reference.
+        _init_mlp(blk.moe.experts, g)
+        if cfg.num_shared_experts:
+            _init_mlp(blk.moe.shared, g)
+    else:
+        _init_mlp(blk.mlp, g)
+
+
+def _init_mamba(m: Mamba, cfg: ModelConfig, g: torch.Generator) -> None:
+    """The reference's ``_init_mamba``: ``in_proj``, ``conv_w`` (scale 0.5)
+    and ``out_proj`` drawn in that order; ``a_log = log(linspace(1, 16, H))``."""
+    dt = m.in_proj.dtype
+    m.in_proj.copy_(dense_init(g, m.in_proj.shape, dt))
+    m.conv_w.copy_(dense_init(g, m.conv_w.shape, dt, scale=0.5))
+    m.conv_b.zero_()
+    m.dt_bias.zero_()
+    m.a_log.copy_(torch.log(torch.linspace(1.0, 16.0, cfg.ssm_heads, dtype=torch.float32)))
+    m.d_skip.fill_(1)
+    m.norm.fill_(1)
+    m.out_proj.copy_(dense_init(g, m.out_proj.shape, dt))
+
+
 @torch.no_grad()
 def init_params(cfg: ModelConfig, *, generator: torch.Generator,
                 device: DeviceSpec = "cuda") -> Transformer:
     """A ``Transformer`` on ``device`` with the reference's initialisers, drawn
     in the reference's order from ``generator`` (on the generator's device,
-    then moved).  The values are not the JAX package's: its weights come
-    across through ``weights.params_from_numpy``.  A moe layer draws only the
-    FFN it holds, not the reference's unused copy."""
+    then moved): the hybrid's blocks, then its shared block; encdec's encoder
+    blocks, then each decoder block's dense part followed by its ``xattn``.
+    The values are not the JAX package's: its weights come across through
+    ``weights.params_from_numpy``.  A moe layer draws only the FFN it holds,
+    not the reference's unused copy."""
     model = Transformer(cfg, device=device)
     dt = cfg.torch_dtype
     d = cfg.d_model
@@ -212,29 +296,31 @@ def init_params(cfg: ModelConfig, *, generator: torch.Generator,
     model.final_norm.fill_(1)
     if not cfg.tie_embeddings:
         model.lm_head.copy_(dense_init(g, (d, cfg.vocab_size), dt))
-    for blk in model.blocks:
-        blk.ln1.fill_(1)
-        blk.ln2.fill_(1)
-        if isinstance(blk.attn, MLAAttention):
-            _init_mla(blk.attn, cfg, g)
-        else:
-            _init_attn(blk.attn, cfg, g)
-        if hasattr(blk, "moe"):
-            blk.moe.router.copy_(dense_init(g, blk.moe.router.shape, torch.float32))
-            # dense_init takes the fan-in from the first axis: for the
-            # stacked experts that is E, as in the reference.
-            _init_mlp(blk.moe.experts, g)
-            if cfg.num_shared_experts:
-                _init_mlp(blk.moe.shared, g)
-        else:
-            _init_mlp(blk.mlp, g)
+    if cfg.family in ("ssm", "hybrid"):
+        for blk in model.blocks:
+            blk.ln.fill_(1)
+            _init_mamba(blk.mamba, cfg, g)
+        if cfg.family == "hybrid":
+            _init_block(model.shared_block, cfg, g)
+    elif cfg.family == "encdec":
+        for blk in model.enc_blocks:
+            _init_block(blk, cfg, g)
+        for blk in model.blocks:
+            _init_block(blk, cfg, g)
+            blk.ln_x.fill_(1)
+            _init_attn(blk.xattn, cfg, g)
+        model.enc_norm.fill_(1)
+    else:
+        for blk in model.blocks:
+            _init_block(blk, cfg, g)
     return model
 
 
-
 # =============================== forward ======================================
-def _attn_sublayer(blk: Block, h: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-    """Causal GQA attention over a full sequence."""
+def _attn_sublayer(blk: Block, h: torch.Tensor, cfg: ModelConfig, *,
+                   causal: bool = True, use_rope: bool = True) -> torch.Tensor:
+    """GQA self-attention over a full sequence (the reference's
+    ``_attn_sublayer`` without its mesh paths)."""
     S = h.shape[1]
     a = blk.attn
     x = rms_norm(h, blk.ln1, cfg.rms_eps)
@@ -243,10 +329,11 @@ def _attn_sublayer(blk: Block, h: torch.Tensor, cfg: ModelConfig) -> torch.Tenso
     v = torch.einsum("bsd,dhk->bshk", x, a.wv)
     if cfg.qkv_bias:
         q, k, v = q + a.bq, k + a.bk, v + a.bv
-    pos = torch.arange(S, device=h.device)
-    q = apply_rope(q, pos, cfg.rope_theta)
-    k = apply_rope(k, pos, cfg.rope_theta)
-    o = flash_attention(q, k, v, causal=True)
+    if use_rope:
+        pos = torch.arange(S, device=h.device)
+        q = apply_rope(q, pos, cfg.rope_theta)
+        k = apply_rope(k, pos, cfg.rope_theta)
+    o = flash_attention(q, k, v, causal=causal)
     return h + torch.einsum("bshk,hkd->bsd", o, a.wo)
 
 
@@ -287,6 +374,30 @@ def _ffn_sublayer(blk: Block, h: torch.Tensor, cfg: ModelConfig) -> torch.Tensor
     return h + swiglu(x, m.w_gate, m.w_up, m.w_down)
 
 
+def _shared_attn_block(shared: Block, h: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """The hybrid's shared block: causal attention with rope, then its MLP."""
+    return _ffn_sublayer(shared, _attn_sublayer(shared, h, cfg), cfg)
+
+
+def _cross_sublayer(blk: Block, h: torch.Tensor, cfg: ModelConfig,
+                    enc: torch.Tensor) -> torch.Tensor:
+    """Cross-attention: queries from ``h``, K/V projected from the encoder
+    output ``enc`` (B, S_enc, d) through ``xattn.wk``/``wv``; no rope, no
+    bias, no mask."""
+    a = blk.xattn
+    x = rms_norm(h, blk.ln_x, cfg.rms_eps)
+    q = torch.einsum("bsd,dhk->bshk", x, a.wq)
+    k = torch.einsum("bsd,dhk->bshk", enc, a.wk)
+    v = torch.einsum("bsd,dhk->bshk", enc, a.wv)
+    o = flash_attention(q, k, v, causal=False)
+    return h + torch.einsum("bshk,hkd->bsd", o, a.wo)
+
+
+def _positions(length: int, cfg: ModelConfig, like: torch.Tensor) -> torch.Tensor:
+    """encdec's sinusoidal positions (length, d) in ``like``'s dtype and device."""
+    return sinusoidal_positions(length, cfg.d_model).to(device=like.device, dtype=like.dtype)
+
+
 def lm_logits(h: torch.Tensor, cfg: ModelConfig, embed: torch.Tensor,
               final_norm: torch.Tensor, lm_head: Optional[torch.Tensor]) -> torch.Tensor:
     """Final norm and head: (B, S, d) -> (B, S, vocab), in the weights' dtype."""
@@ -301,48 +412,92 @@ def _head(model: Transformer, h: torch.Tensor) -> torch.Tensor:
 
 
 def forward(model: Transformer, tokens: torch.Tensor, *,
-            patches: Optional[torch.Tensor] = None) -> torch.Tensor:
+            patches: Optional[torch.Tensor] = None,
+            enc_inputs: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Full-sequence forward of ``tokens`` (B, S); returns logits (B, S, vocab).
     vlm: ``patches`` (B, n_patch, d) take the first ``n_patch`` positions.
     moe: each layer routes all B·S tokens jointly, with the capacity of B·S
-    tokens, so a token dropped here may be kept by a decode step."""
+    tokens, so a token dropped here may be kept by a decode step.
+    encdec: ``enc_inputs`` (B, S_enc, d) are the (stubbed) frontend's frame
+    embeddings that the encoder runs over."""
     cfg = model.cfg
     h = model.embed[tokens]
     if cfg.family == "vlm" and patches is not None:
         npatch = patches.shape[1]
         h = torch.cat([patches.to(h.dtype), h[:, npatch:]], dim=1)
-    for blk in model.blocks:
-        if cfg.mla:
-            h = _mla_sublayer(blk, h, cfg)
-        else:
-            h = _attn_sublayer(blk, h, cfg)
-        h = _ffn_sublayer(blk, h, cfg)
+    if cfg.family in ("ssm", "hybrid"):
+        every = cfg.shared_attn_every
+        for idx, blk in enumerate(model.blocks):
+            y, _ = mamba2_forward(blk.mamba, rms_norm(h, blk.ln, cfg.rms_eps), cfg)
+            h = h + y
+            if cfg.family == "hybrid" and idx % every == every - 1:
+                h = _shared_attn_block(model.shared_block, h, cfg)
+    elif cfg.family == "encdec":
+        h = h + _positions(h.shape[1], cfg, h)
+        enc = enc_inputs.to(h.dtype)
+        enc = enc + _positions(enc.shape[1], cfg, enc)
+        for blk in model.enc_blocks:
+            enc = _attn_sublayer(blk, enc, cfg, causal=False, use_rope=False)
+            enc = _ffn_sublayer(blk, enc, cfg)
+        enc = rms_norm(enc, model.enc_norm, cfg.rms_eps)
+        for blk in model.blocks:
+            h = _attn_sublayer(blk, h, cfg, use_rope=False)
+            h = _cross_sublayer(blk, h, cfg, enc)
+            h = _ffn_sublayer(blk, h, cfg)
+    else:
+        for blk in model.blocks:
+            if cfg.mla:
+                h = _mla_sublayer(blk, h, cfg)
+            else:
+                h = _attn_sublayer(blk, h, cfg)
+            h = _ffn_sublayer(blk, h, cfg)
     return _head(model, h)
 
 
 # =============================== decode =======================================
 def _cache_keys(cfg: ModelConfig) -> Tuple[str, str]:
+    """The two cache tensors of a decoder layer's attention."""
     return ("ckv", "kr") if cfg.mla else ("k", "v")
 
 
-def init_cache(cfg: ModelConfig, batch: int, max_len: int, *,
+def init_cache(cfg: ModelConfig, batch: int, max_len: int, *, enc_len: int = 0,
                device: DeviceSpec = "cuda", dtype: Optional[torch.dtype] = None
                ) -> Dict[str, Any]:
     """The serving cache and ``len``, a host int (the reference's is a device
-    scalar): ``k``/``v`` of (L, batch, max_len, kv_heads, head_dim), or for
-    MLA the latent ``ckv`` (L, batch, max_len, r) and the rope key ``kr``
-    (L, batch, max_len, dr)."""
-    check_family(cfg)
+    scalar), by family:
+
+    - dense, vlm, moe: ``k``/``v`` of (L, batch, max_len, kv_heads,
+      head_dim), or for MLA the latent ``ckv`` (L, batch, max_len, r) and
+      the rope key ``kr`` (L, batch, max_len, dr);
+    - ssm, hybrid: ``ssm`` (L, batch, H, P, N), fp32 whatever ``dtype``,
+      and ``conv`` (L, batch, K - 1, di + 2N), the last conv inputs; the
+      hybrid adds ``sk``/``sv`` (sites, batch, max_len, kv_heads, head_dim)
+      for its ``num_layers // shared_attn_every`` shared-block sites;
+    - encdec: ``k``/``v`` for the decoder's self-attention and ``enc_k``/
+      ``enc_v`` (L, batch, enc_len, kv_heads, head_dim), zeros for the
+      caller to fill."""
     dev = resolve_device(device)
     dt = dtype or cfg.torch_dtype
     L = cfg.num_layers
-    if cfg.mla:
-        shapes = ((L, batch, max_len, cfg.kv_lora_rank), (L, batch, max_len, cfg.qk_rope_dim))
+    kv = (batch, max_len, cfg.kv_heads, cfg.hdim)
+    if cfg.family in ("ssm", "hybrid"):
+        shapes = {"ssm": ((L, batch, cfg.ssm_heads, cfg.ssm_headdim, cfg.ssm_state),
+                          torch.float32),
+                  "conv": ((L, batch, cfg.ssm_conv - 1, cfg.d_inner + 2 * cfg.ssm_state), dt)}
+        if cfg.family == "hybrid":
+            sites = cfg.num_layers // cfg.shared_attn_every
+            shapes.update(sk=((sites,) + kv, dt), sv=((sites,) + kv, dt))
+    elif cfg.mla:
+        shapes = {"ckv": ((L, batch, max_len, cfg.kv_lora_rank), dt),
+                  "kr": ((L, batch, max_len, cfg.qk_rope_dim), dt)}
     else:
-        shapes = ((L, batch, max_len, cfg.kv_heads, cfg.hdim),) * 2
+        shapes = {"k": ((L,) + kv, dt), "v": ((L,) + kv, dt)}
+        if cfg.family == "encdec":
+            enc = (L, batch, enc_len, cfg.kv_heads, cfg.hdim)
+            shapes.update(enc_k=(enc, dt), enc_v=(enc, dt))
     cache: Dict[str, Any] = {"len": 0}
-    for key, shape in zip(_cache_keys(cfg), shapes):
-        cache[key] = torch.zeros(shape, dtype=dt, device=dev)
+    for key, (shape, kdt) in shapes.items():
+        cache[key] = torch.zeros(shape, dtype=kdt, device=dev)
     return cache
 
 
@@ -355,8 +510,12 @@ def layer_caches(cfg: ModelConfig, cache: Dict[str, Any], li: int
 def cache_position(cfg: ModelConfig, cache: Dict[str, Any]) -> int:
     """The slot the next token's cache entries go to; raises
     ``CacheFullError`` when there is none (the reference clamps and
-    overwrites the last slot)."""
-    cur, max_len = int(cache["len"]), cache[_cache_keys(cfg)[0]].shape[2]
+    overwrites the last slot).  The limit is the attention caches' length
+    (the hybrid's ``sk``); a pure ssm cache has none."""
+    cur = int(cache["len"])
+    if cfg.family == "ssm":
+        return cur
+    max_len = cache["sk" if cfg.family == "hybrid" else _cache_keys(cfg)[0]].shape[2]
     if cur >= max_len:
         raise CacheFullError(
             f"decode step at len {cur}: the cache holds {max_len} positions")
@@ -364,15 +523,17 @@ def cache_position(cfg: ModelConfig, cache: Dict[str, Any]) -> int:
 
 
 def _decode_attn(a: Attention, x: torch.Tensor, cfg: ModelConfig, k_cache: torch.Tensor,
-                 v_cache: torch.Tensor, cur: int, posv: torch.Tensor) -> torch.Tensor:
+                 v_cache: torch.Tensor, cur: int, posv: torch.Tensor,
+                 use_rope: bool = True) -> torch.Tensor:
     """GQA for one token of normed ``x``: its K/V written in place at ``cur``."""
     q = torch.einsum("bsd,dhk->bshk", x, a.wq)
     k = torch.einsum("bsd,dhk->bshk", x, a.wk)
     v = torch.einsum("bsd,dhk->bshk", x, a.wv)
     if cfg.qkv_bias:
         q, k, v = q + a.bq, k + a.bk, v + a.bv
-    q = apply_rope(q, posv, cfg.rope_theta)
-    k = apply_rope(k, posv, cfg.rope_theta)
+    if use_rope:
+        q = apply_rope(q, posv, cfg.rope_theta)
+        k = apply_rope(k, posv, cfg.rope_theta)
     k_cache[:, cur] = k[:, 0].to(k_cache.dtype)
     v_cache[:, cur] = v[:, 0].to(v_cache.dtype)
     o = decode_attention(q, k_cache, v_cache, cur + 1)
@@ -402,15 +563,58 @@ def decode_layer(blk: Block, h: torch.Tensor, cfg: ModelConfig,
     return _ffn_sublayer(blk, h, cfg)
 
 
+def _decode_mamba(blk: MambaBlock, h: torch.Tensor, cfg: ModelConfig,
+                  ssm_state: torch.Tensor, conv_state: torch.Tensor) -> torch.Tensor:
+    """One Mamba-2 layer for one token; its states updated in place."""
+    y, ss, cs = mamba2_decode(blk.mamba, rms_norm(h, blk.ln, cfg.rms_eps)[:, 0, :], cfg,
+                              ssm_state, conv_state)
+    ssm_state.copy_(ss)
+    conv_state.copy_(cs)
+    return h + y[:, None, :]
+
+
+def _decode_encdec_layer(blk: Block, h: torch.Tensor, cfg: ModelConfig,
+                         cache: Dict[str, Any], li: int, cur: int) -> torch.Tensor:
+    """One decoder layer for one token: causal self-attention without rope
+    (K/V written in place at ``cur``), cross-attention against the layer's
+    ``enc_k``/``enc_v`` as they are, then the MLP."""
+    posv = torch.full((1,), cur, dtype=torch.int64, device=h.device)
+    x = rms_norm(h, blk.ln1, cfg.rms_eps)
+    h = h + _decode_attn(blk.attn, x, cfg, cache["k"][li], cache["v"][li], cur, posv,
+                         use_rope=False)
+    a = blk.xattn
+    q = torch.einsum("bsd,dhk->bshk", rms_norm(h, blk.ln_x, cfg.rms_eps), a.wq)
+    enc_k = cache["enc_k"][li]
+    o = decode_attention(q, enc_k, cache["enc_v"][li], enc_k.shape[1])
+    h = h + torch.einsum("bshk,hkd->bsd", o, a.wo)
+    return _ffn_sublayer(blk, h, cfg)
+
+
 def decode_step(model: Transformer, cache: Dict[str, Any],
                 tokens: torch.Tensor) -> Tuple[torch.Tensor, Dict[str, Any]]:
     """One serving step: consume one token per sequence (``tokens`` (B,)),
-    return logits (B, vocab) and ``cache``, updated in place."""
+    return logits (B, vocab) and ``cache``, updated in place.  Raises
+    ``CacheFullError`` before any state is written when the attention
+    caches are full (``cache_position``)."""
     cfg = model.cfg
     cur = cache_position(cfg, cache)
     h = model.embed[tokens][:, None, :]
-    for li, blk in enumerate(model.blocks):
-        h = decode_layer(blk, h, cfg, layer_caches(cfg, cache, li), cur)
+    if cfg.family in ("ssm", "hybrid"):
+        every = cfg.shared_attn_every
+        for idx, blk in enumerate(model.blocks):
+            h = _decode_mamba(blk, h, cfg, cache["ssm"][idx], cache["conv"][idx])
+            if cfg.family == "hybrid" and idx % every == every - 1:
+                site = idx // every
+                h = decode_layer(model.shared_block, h, cfg,
+                                 (cache["sk"][site], cache["sv"][site]), cur)
+    elif cfg.family == "encdec":
+        # the sinusoidal position at cur (the reference slices its table there)
+        h = h + _positions(cur + 1, cfg, h)[cur]
+        for li, blk in enumerate(model.blocks):
+            h = _decode_encdec_layer(blk, h, cfg, cache, li, cur)
+    else:
+        for li, blk in enumerate(model.blocks):
+            h = decode_layer(blk, h, cfg, layer_caches(cfg, cache, li), cur)
     logits = _head(model, h)[:, 0, :]
     cache["len"] = cur + 1
     return logits, cache

@@ -24,6 +24,7 @@ sys.path.insert(0, {root!r})
 import repro_torch, repro_torch.apps, repro_torch.core, repro_torch.kernels, repro_torch.obs
 import repro_torch.configs, repro_torch.models, repro_torch.launch.serve
 import repro_torch.models.offload, repro_torch.models.weights, repro_torch.models.moe
+import repro_torch.models.ssm
 import chip_smoke
 from repro_torch.core import Session
 s = Session("ooc", device="cpu", num_tiles=2, capacity_bytes=float("inf"))
@@ -32,6 +33,8 @@ cfg = repro_torch.configs.get_reduced_config("llama3_2_1b")
 m = repro_torch.models.init_params(cfg, generator=torch.Generator(), device="cpu")
 assert repro_torch.launch.serve.main(["--arch", "llama3_2_1b", "--reduced",
                                       "--device", "cpu", "--offload", "--quiet"]) == 0
+assert repro_torch.launch.serve.main(["--arch", "mamba2_1_3b", "--reduced",
+                                      "--device", "cpu", "--quiet"]) == 0
 assert "jax" not in [m.split(".")[0] for m in sys.modules if sys.modules[m] is not None]
 print("isolated")
 """

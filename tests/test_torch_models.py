@@ -32,7 +32,6 @@ from repro_torch.models import attention as TA  # noqa: E402
 from repro_torch.models import layers as TL  # noqa: E402
 from repro_torch.models import (  # noqa: E402
     CacheFullError,
-    Transformer,
     decode_step,
     forward,
     init_cache,
@@ -47,8 +46,6 @@ BF16 = dict(rtol=0, atol=2e-2)
 DTYPES = {"float32": (jnp.float32, torch.float32, LAYER_F32),
           "bfloat16": (jnp.bfloat16, torch.bfloat16, BF16)}
 MODEL_ARCHS = ["llama3_2_1b", "tinyllama_1_1b", "qwen2_5_14b", "internvl2_76b"]
-OTHER_FAMILIES = [a for a in JC.ARCH_IDS
-                  if JC.get_config(a).family in ("ssm", "hybrid", "encdec")]
 
 
 @pytest.fixture(autouse=True)
@@ -334,11 +331,3 @@ def test_weights_round_trip(dtype):
     with pytest.raises(ValueError, match="final_norm"):
         params_from_numpy(model.cfg, bad, device=CPU)
 
-
-@pytest.mark.parametrize("arch", OTHER_FAMILIES)
-def test_other_families_name_their_roadmap_item(arch):
-    cfg = TC.get_reduced_config(arch)
-    with pytest.raises(NotImplementedError, match=r"ROADMAP A14\(c\)"):
-        Transformer(cfg, device=CPU)
-    with pytest.raises(NotImplementedError, match=cfg.family):
-        init_cache(cfg, 1, 4, device=CPU)

@@ -134,5 +134,8 @@ def test_launcher_decodes_on_the_cpu(offload, capsys):
 
 
 def test_launcher_refuses_an_unported_family(capsys):
-    assert launch_serve.main(["--arch", "mamba2_1_3b", "--reduced", "--device", "cpu"]) == 2
-    assert "ROADMAP A14(c)" in capsys.readouterr().err
+    """Streaming is ported for the dense and vlm families only, as in the
+    reference: ``--offload`` on any other exits 2 and names them."""
+    assert launch_serve.main(["--arch", "mamba2_1_3b", "--reduced", "--device", "cpu",
+                              "--offload"]) == 2
+    assert "--offload supports dense/vlm families, not ssm" in capsys.readouterr().err

@@ -499,6 +499,7 @@ def test_launch_serve_stencil_on_the_cpu(capsys):
     assert "cross-tenant plan hits" in capsys.readouterr().out
     assert launch_serve.main(["--arch", "x"]) != 0
     assert "unknown arch 'x'" in capsys.readouterr().err
-    # model decode runs the dense and vlm families; the others name their item
-    assert launch_serve.main(["--arch", "mamba2_1_3b", "--reduced", "--device", "cpu"]) != 0
-    assert "A14" in capsys.readouterr().err
+    # model decode streams the dense and vlm families only
+    assert launch_serve.main(["--arch", "mamba2_1_3b", "--reduced", "--device", "cpu",
+                              "--offload"]) == 2
+    assert "--offload supports dense/vlm families" in capsys.readouterr().err
