@@ -13,6 +13,7 @@
     python3 chip_smoke.py --model    # only phase 11, model decode
     python3 chip_smoke.py --moe      # only phase 12, moe decode
     python3 chip_smoke.py --ssm      # only phase 13, ssm, hybrid and encdec decode
+    python3 chip_smoke.py --train    # only phase 14, training
 
 Phases, each of which asserts (any failure exits non-zero):
 
@@ -68,8 +69,10 @@ Phases, each of which asserts (any failure exits non-zero):
    host budget at a third of the homes, so the plans carry FetchHome and
    SpillHome for the disk lane, and ``debug=True``, so every plan is
    verified before it runs; checkpointed at step 2 and resumed in a new app
-   and Session; then ``chunked`` homes (lossless ``shuffle-rle``).  Fields
-   bit-identical to phase 7's RAM-home ``ooc`` run (every home's digest,
+   and Session; then ``chunked`` homes (lossless ``shuffle-rle``; in the
+   whole run in a child process started before the ``mmap`` runs, which
+   overlaps them and phase 9 on other cores and is joined before phase
+   10).  Fields bit-identical to phase 7's RAM-home ``ooc`` run (every home's digest,
    where the tile counts match; else rtol 1e-4 / atol 1e-5 of
    ``reference``), the resume bit-identical to the uninterrupted run.
    Records: wall per step (planning, verify, the rest), disk bytes, home
@@ -80,8 +83,10 @@ Phases, each of which asserts (any failure exits non-zero):
    ``mesh="sim:4"`` along dim 1 (the skirt sized automatically), each
    shard out of core at a quarter of phase 7's capacity, traced for the
    mesh spans, on ``ooc-sharded`` and then ``ooc-async`` (bit-identical to
-   it).  Fields rtol 1e-4 / atol 1e-5 and summaries rtol 1e-3 of phase 7's
-   ``reference`` run, the difference to phase 7's ``ooc`` run printed, the
+   it), 2 steps (``CUT_STEPS``; phase 7 records its ``ooc`` and
+   ``reference`` runs after step 2 as well, for this and phase 10).  Fields
+   rtol 1e-4 / atol 1e-5 and summaries rtol 1e-3 of phase 7's
+   ``reference`` run at step 2, the difference to phase 7's ``ooc`` run printed, the
    plans' halo messages and bytes equal to the achieved ones, peak device
    memory below the homes.  Records per step: wall, planning seconds summed
    over the shards, scatter / gather / exchange seconds from the mesh
@@ -93,7 +98,7 @@ Phases, each of which asserts (any failure exits non-zero):
    cards (else a ``mesh_cuda`` record says it did not run).  Every phase 9
    record carries the card's ``nvidia-smi`` name and power limit;
 10. serving — four CloverLeaf 2D tenants at phase 7's size (4 x 6.72 GB of
-   pinned homes), each run from its own thread through one
+   pinned homes), 2 steps each, each run from its own thread through one
    ``repro_torch.serve.StencilServer("sim:2")``: two lanes on the card,
    each computing on its own stream, ``sjf``, priorities 0, 1, 0, 1,
    phase 7's ``hw``, capacity and prefetch, traced, the plans shared
@@ -101,7 +106,7 @@ Phases, each of which asserts (any failure exits non-zero):
    chain (a checkpoint under ``build/spill/serve``, deleted at the end,
    then a restore, possibly on the other lane); auto-preemption is off.
    Every tenant's homes and summaries bit-identical to phase 7's ``ooc``
-   run, at least one preemption, no rejection, peak device memory below
+   run at step 2, at least one preemption, no rejection, peak device memory below
    the four tenants' homes, every span a lane's, a tenant's or a lease
    (the admission oracle untraced), no hand-written kernel launched.
    Records: the served wall beside four phase 7 ``ooc`` walls, planning
@@ -175,8 +180,29 @@ Phases, each of which asserts (any failure exits non-zero):
    ``main`` in this process on the three reduced archs (exit 0) and with
    ``--offload`` (exit 2).  No hand-written kernel launches.
 
+14. training — Llama 3.2 1B at its published config (bf16, 1.236 B
+   parameters, seeded weights made on the card) through
+   ``repro_torch.launch.train``'s ``main`` in this process: 6 steps of batch
+   2 at 4,096 tokens in 2 microbatches (8,192 tokens a step), remat on;
+   every loss and grad norm finite, and step 0's batch's loss lower after
+   the 6 steps than before them.  Records ms a step (CUDA events, the median
+   of steps 2-6), tokens/s, the model FLOPs of a step (6·N·T) against the
+   dense bf16 peak, optimizer ms and peak device memory; then 2 more steps
+   under ``torch.profiler`` for the card's busy share, and one microbatch's
+   gradients twice by default and once in ``torch``'s deterministic mode
+   (bits and ms compared).  Then an fp32 copy at 2 layers (TF32 off): one
+   step's loss and gradients on the card against the CPU (loss rtol 1e-4,
+   gradients rtol 1e-3 / atol 1e-5), ``adamw_update`` fed the same
+   gradients on both (parameters and moments atol 1e-6), and the card's
+   gradients with remat off ``torch.equal`` to remat on.  Then the launcher
+   on the reduced arch: an uninterrupted 6-step run against one stopped by
+   a SIGTERM after step 3 and resumed, their last checkpoints (under
+   ``build/train_ckpt``, deleted at the end) equal array for array; and
+   the launcher on every trainable family's reduced arch (2 steps, exit 0;
+   Whisper exits 2).  No hand-written kernel launches.
+
 Every line but the last two is a JSON record.  The line before the last
-JSON ``ok`` line lists every ported kernel (phases 7 to 13 launch none of
+JSON ``ok`` line lists every ported kernel (phases 7 to 14 launch none of
 them: the apps' loops and the models' layers are torch ops); the card's ``nvidia-smi`` name and power
 limit are printed on their own line before it.  The script
 imports nothing of JAX or of the JAX package.
@@ -189,12 +215,14 @@ import hashlib
 import json
 import os
 import shutil
+import signal
 import tempfile
 import statistics
 import subprocess
 import sys
 import threading
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
@@ -804,8 +832,7 @@ def run_app(name: str, make_app, backend: str, steps: int, drive=None,
            "transfer": sess.transfer_stats(),
            "fields": {n: app.d(n).interior().copy() for n in APP_FIELDS[name]}}
     if digests:
-        out["digests"] = {n: hashlib.sha1(memoryview(np.ascontiguousarray(
-            d.materialize()))).hexdigest() for n, d in app.dats.items()}
+        out["digests"] = home_digests(app)
     del app, sess
     gc.collect()
     torch.cuda.empty_cache()
@@ -813,6 +840,40 @@ def run_app(name: str, make_app, backend: str, steps: int, drive=None,
 
 
 MESH_SPANS = ("scatter", "gather", "halo-exchange")
+
+# Phases 9 and 10 take CloverLeaf 2D to this step, not to phase 7's 4 (the
+# script's time limit; see their docstrings): phase 7 records its ``ooc``
+# and ``reference`` runs there as well, the baselines of their depth.
+CUT_STEPS = 2
+
+
+def home_digests(app) -> dict:
+    """Every home's SHA-1 by name, the homes hashed in parallel threads
+    (``hashlib`` releases the interpreter's lock on large buffers)."""
+    def digest(d):
+        return hashlib.sha1(memoryview(np.ascontiguousarray(d.materialize()))).hexdigest()
+    with ThreadPoolExecutor(max_workers=min(8, os.cpu_count() or 1)) as pool:
+        return dict(zip(app.dats, pool.map(digest, app.dats.values())))
+
+
+def recording_at(step: int, steps: int, at: dict, digests: bool = False):
+    """A ``drive`` for ``run_app``: ``app.run`` to ``step``, where the fields,
+    the summary, the wall since the drive began (and with ``digests`` every
+    home's SHA-1) go into ``at``, then on to ``steps`` exactly as an
+    uninterrupted ``app.run`` (the chain before ``step`` ends in the summary's
+    flush, so the chains are the same)."""
+    def drive(app, sess):
+        t0 = time.perf_counter()
+        out = app.run(sess, steps=step)
+        at["summary"] = dict(out)
+        at["fields"] = {n: sess.fetch(app.d(n)) for n in APP_FIELDS["cloverleaf2d"]}
+        torch.cuda.synchronize()
+        at["wall_s"] = time.perf_counter() - t0
+        if digests:
+            at["digests"] = home_digests(app)
+        out.update(app.run_steps(sess, step, steps))
+        return out
+    return drive
 
 
 def app_check(name: str, got: dict, want: dict, what: str) -> float:
@@ -913,7 +974,9 @@ def apps_phase(n2d: int, n3d: int, steps2d: int = 4, steps3d: int = 2) -> dict:
     (the in-core baseline) and ``reference``, all on the card; CloverLeaf 3D
     and OpenSBLI (two timesteps a chain) at n3d^3 run ``steps3d`` steps on
     ``ooc`` against ``reference``.  Returns CloverLeaf 2D's ``ooc`` run (with
-    its homes' digests) and ``reference`` run, phase 8's baselines."""
+    its homes' digests) and ``reference`` run, phase 8's baselines, and under
+    ``at2`` both as they stood after step CUT_STEPS (fields, summary, wall;
+    ``ooc``'s digests), phases 9 and 10's."""
     from repro_torch.apps import CloverLeaf2D, CloverLeaf3D, OpenSBLI
 
     def cl2d():
@@ -922,12 +985,15 @@ def apps_phase(n2d: int, n3d: int, steps2d: int = 4, steps3d: int = 2) -> dict:
     homes = 25 * (n2d + 4) ** 2 * 4
     cap = homes / 3
     runs = {}
+    at = {"ooc": {}, "reference": {}}
     for backend, kw in (("ooc", dict(hw="p100-pcie", capacity_bytes=cap, prefetch=True,
-                                     digests=True)),
+                                     digests=True, drive=recording_at(
+                                         CUT_STEPS, steps2d, at["ooc"], digests=True))),
                         ("ooc-async", dict(hw="p100-pcie", capacity_bytes=cap,
                                            prefetch=True)),
                         ("resident", dict(hw="p100-pcie")),
-                        ("reference", {})):
+                        ("reference", dict(drive=recording_at(CUT_STEPS, steps2d,
+                                                              at["reference"])))):
         run = runs[backend] = run_app("cloverleaf2d", cl2d, backend, steps2d, **kw)
         check(run["home_bytes"] == homes, f"homes {run['home_bytes']} B")
         rec = {"phase": "apps", "app": "cloverleaf2d", "backend": backend,
@@ -971,7 +1037,7 @@ def apps_phase(n2d: int, n3d: int, steps2d: int = 4, steps3d: int = 2) -> dict:
          resident_over_ooc_async=per_step["resident"] / per_step["ooc-async"],
          resident_over_ooc_without_plan=no_plan["resident"] / no_plan["ooc"],
          resident_over_ooc_async_without_plan=no_plan["resident"] / no_plan["ooc-async"])
-    baseline = {"ooc": ooc, "reference": ref_}
+    baseline = {"ooc": ooc, "reference": ref_, f"at{CUT_STEPS}": at}
     del runs, ooc, asy, res, ref_
     emit(phase="apps_ops", app="cloverleaf2d", **kernel_ops_per_timestep())
     for name, make in (("cloverleaf3d",
@@ -1004,14 +1070,19 @@ SPILL_ROOT = Path(__file__).resolve().parent / "build" / "spill"
 
 def cl2d_baselines(n: int, steps: int = 4) -> dict:
     """Phase 7's CloverLeaf 2D ``ooc`` (RAM homes, with digests) and
-    ``reference`` runs, for running phase 8 or phase 9 alone."""
+    ``reference`` runs, with their state after step CUT_STEPS under ``at2``,
+    for running phase 8, 9 or 10 alone."""
     from repro_torch.apps import CloverLeaf2D
 
     homes = 25 * (n + 4) ** 2 * 4
     make = lambda: CloverLeaf2D(n, n, summary_every=2)  # noqa: E731
+    at = {"ooc": {}, "reference": {}}
     out = {"ooc": run_app("cloverleaf2d", make, "ooc", steps, digests=True,
+                          drive=recording_at(CUT_STEPS, steps, at["ooc"], digests=True),
                           hw="p100-pcie", capacity_bytes=homes / 3, prefetch=True),
-           "reference": run_app("cloverleaf2d", make, "reference", steps)}
+           "reference": run_app("cloverleaf2d", make, "reference", steps,
+                                drive=recording_at(CUT_STEPS, steps, at["reference"])),
+           f"at{CUT_STEPS}": at}
     emit(phase="cl2d_baseline", interior=[n, n], steps=steps,
          ooc_wall_s=out["ooc"]["wall_s"], reference_wall_s=out["reference"]["wall_s"])
     return out
@@ -1037,7 +1108,7 @@ def disk_record(run: dict, skip: int = 1) -> dict:
             "summary": run["summary"], **lane_record(run)}
 
 
-def disk_phase(n: int, baseline: dict, steps: int = 4) -> None:
+def disk_phase(n: int, baseline: dict, steps: int = 4, chunked_apart: bool = False):
     """CloverLeaf 2D at an n^2 interior with its homes on disk: ``mmap``
     homes at phase 7's capacity with the host budget at a third of the
     homes (so plans carry FetchHome/SpillHome) and ``debug`` verification
@@ -1045,7 +1116,13 @@ def disk_phase(n: int, baseline: dict, steps: int = 4) -> None:
     Session; then ``chunked`` homes (the lossless default codec).  Each is
     held against phase 7's RAM-home ``ooc`` run (``baseline``; bit for bit
     where the tile counts match) and the resume against the uninterrupted
-    run, bit for bit."""
+    run, bit for bit.
+
+    With ``chunked_apart`` the ``chunked`` run goes to a child process
+    (``ChunkedRun``) started before the ``mmap`` runs, and is returned for
+    the caller to join: its one-core codec and planner then overlap the
+    ``mmap`` runs and what the caller runs next, on other cores, with the
+    same run and the same checks."""
     from repro_torch.apps import CloverLeaf2D
     from repro_torch.core import StoreConfig
 
@@ -1053,14 +1130,18 @@ def disk_phase(n: int, baseline: dict, steps: int = 4) -> None:
     homes = 25 * (n + 4) ** 2 * 4
     SPILL_ROOT.mkdir(parents=True, exist_ok=True)
     free = shutil.disk_usage(SPILL_ROOT).free
-    # At most two of the mmap homes, the checkpoint and the resumed mmap
-    # homes exist at once; the chunked files (at most the homes' size with
-    # the lossless codec on smooth fields) come after them.
-    need = 3 * homes
+    # The mmap homes, the checkpoint, the resumed mmap homes and the chunked
+    # files (at most the homes' size with the lossless codec on smooth
+    # fields) may all exist at once.
+    need = 4 * homes
     emit(phase="disk_space", spill_root=str(SPILL_ROOT), free_bytes=free,
          needed_bytes=need)
     check(free >= need, f"the spill directory {SPILL_ROOT} has {free} bytes free; "
           f"phase 8 needs {need} for the homes, the checkpoint and the chunked files")
+    ooc = baseline["ooc"]
+    want = {"tiles": [c["tiles"] for c in ooc["chains"]], "digests": ooc["digests"],
+            "summary": ooc["summary"]}
+    child = ChunkedRun(n, want, steps) if chunked_apart else None
     spill = Path(tempfile.mkdtemp(prefix="phase8-", dir=SPILL_ROOT))
     kw = dict(hw="p100-pcie", capacity_bytes=homes / 3, prefetch=True,
               host_capacity=homes / 3, debug=True)
@@ -1098,7 +1179,6 @@ def disk_phase(n: int, baseline: dict, steps: int = 4) -> None:
               "the mmap run's plans carry FetchHome and SpillHome")
         check(mm["peak_device_bytes"] < homes,
               f"mmap: peak {mm['peak_device_bytes']} B not below the homes {homes} B")
-        ooc = baseline["ooc"]
         tiles_match = ([c["tiles"] for c in mm["chains"]]
                        == [c["tiles"] for c in ooc["chains"]])
         if tiles_match:
@@ -1130,21 +1210,90 @@ def disk_phase(n: int, baseline: dict, steps: int = 4) -> None:
         shutil.rmtree(spill / "resumed")
         os.remove(ckpt)
 
-        ch = run_app("cloverleaf2d", cl2d("chunked", "chunked"), "ooc", steps,
-                     digests=True, **kw)
-        check(ch["stores"] == ["chunked"], f"the chunked run's homes were {ch['stores']}")
-        on_disk = sum(f.stat().st_size for f in (spill / "chunked").rglob("*") if f.is_file())
-        check([c["tiles"] for c in ch["chains"]] == [c["tiles"] for c in ooc["chains"]]
-              and ch["digests"] == ooc["digests"] and ch["summary"] == ooc["summary"],
-              "chunked homes: bit-identical to phase 7's RAM-home ooc run")
-        emit(phase="disk", store="chunked", codec="shuffle-rle",
-             interior=[n, n], steps=steps, home_bytes=homes,
-             capacity_bytes=homes / 3, host_capacity=homes / 3, debug=True,
-             bit_identical_to_ram_ooc=True, chunk_files_bytes=on_disk,
-             **disk_record(ch))
-        emit(phase="disk_done", seconds=time.perf_counter() - t_phase)
+        if child is None:
+            chunked_run(n, want, steps, spill)
+        emit(phase="disk_done", seconds=time.perf_counter() - t_phase,
+             chunked_apart=chunked_apart)
+    except BaseException:
+        if child is not None:
+            child.stop()
+        raise
     finally:
         shutil.rmtree(spill, ignore_errors=True)
+    return child
+
+
+def chunked_run(n: int, want: dict, steps: int, spill: Path) -> None:
+    """Phase 8's ``chunked`` run: CloverLeaf 2D at an n^2 interior from
+    ``chunked`` homes (lossless ``shuffle-rle``) under ``spill``, as the
+    ``mmap`` run (phase 7's capacity, a host budget of a third of the homes,
+    ``debug``), held bit for bit against phase 7's RAM-home ``ooc`` run
+    (``want``: its chains' tile counts, every home's digest, its summary)."""
+    from repro_torch.apps import CloverLeaf2D
+    from repro_torch.core import StoreConfig
+
+    t0 = time.perf_counter()
+    homes = 25 * (n + 4) ** 2 * 4
+    ch = run_app("cloverleaf2d", lambda: CloverLeaf2D(n, n, summary_every=2, store=StoreConfig(
+                     kind="chunked", directory=str(spill / "chunked"))),
+                 "ooc", steps, digests=True, hw="p100-pcie", capacity_bytes=homes / 3,
+                 prefetch=True, host_capacity=homes / 3, debug=True)
+    check(ch["stores"] == ["chunked"], f"the chunked run's homes were {ch['stores']}")
+    on_disk = sum(f.stat().st_size for f in (spill / "chunked").rglob("*") if f.is_file())
+    check([c["tiles"] for c in ch["chains"]] == want["tiles"]
+          and ch["digests"] == want["digests"] and ch["summary"] == want["summary"],
+          "chunked homes: bit-identical to phase 7's RAM-home ooc run")
+    emit(phase="disk", store="chunked", codec="shuffle-rle",
+         interior=[n, n], steps=steps, home_bytes=homes,
+         capacity_bytes=homes / 3, host_capacity=homes / 3, debug=True,
+         bit_identical_to_ram_ooc=True, chunk_files_bytes=on_disk,
+         seconds=time.perf_counter() - t0, **disk_record(ch))
+    shutil.rmtree(spill / "chunked")
+
+
+class ChunkedRun:
+    """``chunked_run`` in a child process (``chip_smoke.py --chunked DIR``)
+    under its own spill directory, which holds the baseline it is held
+    against and its output.  ``join`` waits for it, prints its records and
+    fails where it failed; ``stop`` ends it if it still runs.  Either way
+    its directory is deleted."""
+
+    def __init__(self, n: int, want: dict, steps: int):
+        self.dir = Path(tempfile.mkdtemp(prefix="phase8-chunked-", dir=SPILL_ROOT))
+        (self.dir / "want.json").write_text(json.dumps({"n": n, "steps": steps, **want}))
+        self.t0 = time.perf_counter()
+        with open(self.dir / "out", "wb") as out, open(self.dir / "err", "wb") as err:
+            self.proc = subprocess.Popen([sys.executable, str(Path(__file__).resolve()),
+                                          "--chunked", str(self.dir)],
+                                         stdout=out, stderr=err)
+
+    def join(self, timeout: float = 900) -> None:
+        t0 = time.perf_counter()
+        try:
+            rc = self.proc.wait(timeout)
+            waited = time.perf_counter() - t0
+            sys.stdout.write((self.dir / "out").read_text())
+            err = (self.dir / "err").read_text().strip().splitlines()
+            emit(phase="disk_chunked_joined", rc=rc, child_wall_s=time.perf_counter() - self.t0,
+                 waited_s=waited)
+            check(rc == 0, f"phase 8's chunked run exited {rc}: {err[-5:]}")
+        finally:
+            self.stop()
+
+    def stop(self) -> None:
+        if self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.wait()
+        shutil.rmtree(self.dir, ignore_errors=True)
+
+
+def chunked_child(directory: str) -> int:
+    """The child's side of ``ChunkedRun``: its records go to stdout."""
+    spill = Path(directory)
+    want = json.loads((spill / "want.json").read_text())
+    n, steps = want.pop("n"), want.pop("steps")
+    chunked_run(n, want, steps, spill)
+    return 0
 
 
 # -- phase 9: sharded execution ---------------------------------------------------
@@ -1203,16 +1352,24 @@ def mesh_record(run: dict, steps: int) -> dict:
             "summary": run["summary"], **lane_record(run)}
 
 
-def mesh_phase(n: int, baseline: dict, smi: str, steps: int = 4, reps: int = 20) -> None:
+def mesh_phase(n: int, baseline: dict, smi: str, steps: int = CUT_STEPS,
+               reps: int = 20) -> None:
     """CloverLeaf 2D at an n^2 interior on four shards: ``sim:4`` along
     dim 1 with the skirt sized automatically, each shard out of core at a
     quarter of phase 7's capacity (so the four together hold what phase 7's
     one device did), traced for the mesh spans; on ``ooc-sharded``, then on
     ``ooc-async`` with the same mesh (bit-identical to it).  Held against
-    phase 7's ``reference`` run (``baseline``), its difference to phase 7's
-    ``ooc`` run printed; the plans' halo counts against the achieved ones.
-    Then ``exchange_halos`` on the card at these widths, and a ``cuda:N``
-    mesh where the machine has two or more cards."""
+    phase 7's ``reference`` run at the same step (``baseline``, phase 7's
+    ``at2``), its difference to phase 7's ``ooc`` run there printed; the
+    plans' halo counts against the achieved ones.  Then ``exchange_halos``
+    on the card at these widths, and a ``cuda:N`` mesh where the machine has
+    two or more cards.
+
+    The sharded runs take ``steps`` = CUT_STEPS timesteps, not phase 7's 4:
+    at 83-87% planning a ``sim:4`` step took 25-27 s (NVIDIA H100 80GB HBM3,
+    700 W), and two steps fewer for each of the two runs make room under
+    the script's time limit for phase 14.  Every check stays, against a
+    baseline of the same depth."""
     from repro_torch.apps import CloverLeaf2D
     from repro_torch.core import ShardedOutOfCoreExecutor
 
@@ -1413,9 +1570,7 @@ def serve_tenants(n: int, mesh: str, cap: float, steps: int, spill: Path,
                "lane_chains": [len(lane.history) for lane in lanes],
                "summaries": [summaries[i] for i in range(len(apps))],
                "dt": [app.dt.hex() for app in apps],
-               "digests": [{k: hashlib.sha1(memoryview(np.ascontiguousarray(
-                   d.materialize()))).hexdigest() for k, d in app.dats.items()}
-                   for app in apps]}
+               "digests": [home_digests(app) for app in apps]}
         # The drift audit of lane 0's largest chain (a timestep chain).
         ledgers = lanes[0].ledgers
         if ledgers:
@@ -1481,14 +1636,19 @@ def serve_record(run: dict, smi: str) -> dict:
         "card": smi}
 
 
-def serve_phase(n: int, baseline: dict, smi: str, steps: int = 4,
+def serve_phase(n: int, baseline: dict, smi: str, steps: int = CUT_STEPS,
                 n_cuda: int = 512) -> None:
     """Four CloverLeaf 2D tenants at an n^2 interior served on ``sim:2``
     (two lanes sharing the card) at phase 7's capacity, ``t0`` preempted
     after its second chain.  Every tenant's homes and summaries are held
-    against phase 7's ``ooc`` run (``baseline``), bit for bit.  With two or
-    more cards the same four tenants run at ``n_cuda``^2 on ``cuda:2``,
-    bit for bit against ``sim:2`` at that size."""
+    against phase 7's ``ooc`` run at the same step (``baseline``, phase 7's
+    ``at2``), bit for bit.  With two or more cards the same four tenants run
+    at ``n_cuda``^2 on ``cuda:2``, bit for bit against ``sim:2`` at that
+    size.
+
+    The tenants take ``steps`` = CUT_STEPS timesteps, not phase 7's 4, for
+    the script's time limit (as phase 9): the preemption still falls
+    mid-run, and every check stays, against a baseline of the same depth."""
     t_phase = time.perf_counter()
     homes = 25 * (n + 4) ** 2 * 4
     cap = homes / 3
@@ -2310,6 +2470,396 @@ def ssm_phase(smi: str, batch: int = 4, prompt_len: int = 32, gen_tokens: int = 
          card=smi)
 
 
+# -- phase 14: training -------------------------------------------------------------
+
+TRAIN_ARCH = "llama3_2_1b"
+# Llama 3.2 1B's published widths: layers, d, heads, KV heads, ff,
+# vocabulary, dtype, tied embeddings.
+TRAIN_PUBLISHED = (16, 2048, 32, 8, 8192, 128256, "bfloat16", True)
+# The launcher at full width: 8,192 tokens a step at the reference's
+# train_4k sequence length, in two microbatches of one sequence.
+TRAIN_ARGV = ("--steps", "6", "--batch", "2", "--seq", "4096", "--microbatches", "2")
+TRAIN_PROFILED_STEPS = 2
+TRAIN_FAMILIES = ("qwen3_moe_30b_a3b", "deepseek_v2_lite_16b", "mamba2_1_3b",
+                  "zamba2_1_2b", "internvl2_76b")
+TRAIN_CKPT = Path(__file__).resolve().parent / "build" / "train_ckpt"
+TRAIN_SEED = 14
+# NVIDIA's H100 SXM data sheet: dense bf16 on the tensor cores, at 700 W.
+PEAK_BF16_S = 989e12
+TRAIN_TOL = {"loss": dict(rtol=1e-4, atol=0.0), "grads": dict(rtol=1e-3, atol=1e-5),
+             "adamw": dict(rtol=0.0, atol=1e-6)}
+
+
+def _event():
+    return torch.cuda.Event(enable_timing=True)
+
+
+class train_probe:
+    """While open, ``repro_torch.train.make_train_step`` (the launcher looks
+    it up in ``main``) makes steps that are timed by CUDA events on the
+    current stream and keep their model, optimizer state and metrics, and
+    ``train.step.adamw_update`` is timed the same way.  ``before_first(model)``
+    runs once before the first step; with ``stop_after`` a SIGTERM is raised
+    after that many steps, so the launcher checkpoints and exits 0."""
+
+    def __init__(self, before_first=None, stop_after=None):
+        self.before_first, self.stop_after = before_first, stop_after
+        self.steps, self.adamw, self.metrics = [], [], []
+        self.model = self.opt_state = self.train_step = None
+
+    def __enter__(self):
+        import repro_torch.train as train_pkg
+        import repro_torch.train.step as step_mod
+
+        self._saved = (train_pkg, train_pkg.make_train_step, step_mod, step_mod.adamw_update)
+        make_step, update = self._saved[1], self._saved[3]
+
+        def timed_update(*args, **kw):
+            a, b = _event(), _event()
+            a.record()
+            out = update(*args, **kw)
+            b.record()
+            self.adamw.append((a, b))
+            return out
+
+        def make(*args, **kw):
+            step = self.train_step = make_step(*args, **kw)
+
+            def timed(model, opt_state, batch):
+                if not self.steps and self.before_first is not None:
+                    self.before_first(model)
+                a, b = _event(), _event()
+                a.record()
+                out = step(model, opt_state, batch)
+                b.record()
+                self.steps.append((a, b))
+                self.model, self.opt_state, metrics = out
+                self.metrics.append(metrics)
+                if self.stop_after == len(self.steps):
+                    signal.raise_signal(signal.SIGTERM)
+                return out
+            return timed
+        train_pkg.make_train_step = make
+        step_mod.adamw_update = timed_update
+        return self
+
+    def __exit__(self, *exc):
+        train_pkg, make_step, step_mod, update = self._saved
+        train_pkg.make_train_step, step_mod.adamw_update = make_step, update
+
+    @staticmethod
+    def ms(events) -> list:
+        return [a.elapsed_time(b) for a, b in events]
+
+
+def launch_train(argv) -> tuple:
+    """The training launcher's ``main(argv)`` in this process, its output
+    captured: (exit code, stdout lines, stderr lines)."""
+    import contextlib
+    import io
+
+    from repro_torch.launch import train as launch_train_mod
+
+    out, err = io.StringIO(), io.StringIO()
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+        rc = launch_train_mod.main(list(argv))
+    return rc, out.getvalue().strip().splitlines(), err.getvalue().strip().splitlines()
+
+
+def train_full(smi: str, device: str = "cuda", argv=TRAIN_ARGV) -> dict:
+    """Llama 3.2 1B at its published config through the launcher's ``main``
+    in this process (seeded bf16 weights made on the device, remat on):
+    every loss and grad norm finite, and step 0's batch's loss after the
+    run below its loss before it (both microbatch by microbatch, as the step
+    computes it).  Records ms a step (CUDA events, the median of every step
+    after the first), tokens/s, the model FLOPs of a step (6·N·T) and their
+    share of the dense bf16 peak, the fp32 attention FLOPs, optimizer ms and
+    peak device memory.  Returns what the profile and determinism parts
+    continue from."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import loss_fn
+    from repro_torch.train.data import DataConfig, TokenStream
+
+    cfg = get_config(TRAIN_ARCH)
+    check((cfg.num_layers, cfg.d_model, cfg.num_heads, cfg.kv_heads, cfg.d_ff,
+           cfg.vocab_size, cfg.dtype, cfg.tie_embeddings) == TRAIN_PUBLISHED,
+          f"{TRAIN_ARCH} is at its published config")
+    opts = dict(zip(argv[::2], argv[1::2]))
+    steps, batch, seq, mb = (int(opts[k]) for k in ("--steps", "--batch", "--seq",
+                                                    "--microbatches"))
+    stream = TokenStream(DataConfig(cfg.vocab_size, seq, batch, seed=0))
+    b0 = {k: torch.from_numpy(v).to(device) for k, v in stream.batch_at(0).items()}
+    bs = batch // mb
+
+    def batch0_loss(model) -> float:
+        with torch.no_grad():
+            return sum(float(loss_fn(model, b0["tokens"][i * bs:(i + 1) * bs],
+                                     b0["labels"][i * bs:(i + 1) * bs], remat=False))
+                       for i in range(mb)) / mb
+
+    t_part = time.perf_counter()
+    before = []
+    probe = train_probe(before_first=lambda model: before.append(batch0_loss(model)))
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with probe:
+        rc, out, err = launch_train(["--arch", TRAIN_ARCH, "--device", device, *argv])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    check(rc == 0, f"launch.train.main exited {rc}: {err[-5:]}")
+    losses = [float(m["loss"]) for m in probe.metrics]
+    gnorms = [float(m["grad_norm"]) for m in probe.metrics]
+    check(len(losses) == steps and all(np.isfinite(losses + gnorms)),
+          f"{len(losses)} steps, losses {losses}, grad norms {gnorms}")
+    after = batch0_loss(probe.model)
+    check(after < before[0], f"step 0's batch: loss {after} after {steps} steps, "
+          f"{before[0]} before")
+    ms = probe.ms(probe.steps)
+    step_ms = statistics.median(ms[1:])
+    n_params = sum(p.numel() for p in probe.model.parameters())
+    check(n_params == cfg.param_count() + cfg.d_model,
+          f"{n_params} parameters against the config's count")
+    tokens = batch * seq
+    model_flops = 6 * n_params * tokens
+    # Chunked attention computes every (query, key) pair of each sequence in
+    # fp32 (the mask comes after): 4·S²·Hq·Dh a layer forward, run twice
+    # (remat) and twice more backward.
+    attn_flops = 4 * (4 * seq * seq * cfg.num_heads * cfg.hdim) * cfg.num_layers * batch
+    emit(phase="train_full", arch=TRAIN_ARCH, params=n_params, args=list(argv),
+         tokens_per_step=tokens, remat=True, steps=steps, wall_s=wall,
+         ms_per_step=ms, ms_per_step_median=step_ms,
+         tokens_per_s=tokens / step_ms * 1e3,
+         model_flops_per_step=model_flops,
+         model_flops_share_of_bf16_peak=model_flops / (step_ms / 1e3) / PEAK_BF16_S,
+         bf16_peak_flops=PEAK_BF16_S, attention_fp32_flops_per_step=attn_flops,
+         attention_fp32_floor_ms=attn_flops / PEAK_FP32_S * 1e3,
+         optimizer_ms=probe.ms(probe.adamw),
+         optimizer_ms_median=statistics.median(probe.ms(probe.adamw)),
+         losses=losses, grad_norms=gnorms, batch0_loss_before=before[0],
+         batch0_loss_after=after, peak_device_bytes=peak,
+         launcher_last_line=(out or [""])[-1],
+         seconds=time.perf_counter() - t_part, card=smi)
+    return {"probe": probe, "stream": stream, "b0": b0, "bs": bs, "steps": steps}
+
+
+def train_profile(smi: str, run: dict, device: str = "cuda",
+                  steps: int = TRAIN_PROFILED_STEPS) -> None:
+    """``steps`` more steps of the same model (the stream's next batches)
+    under ``torch.profiler`` (device activity only): the card's busy and
+    idle share of the host's wall, and the kernels that took its time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    t_part = time.perf_counter()
+    probe = run["probe"]
+    model, opt = probe.model, probe.opt_state
+    batches = [{k: torch.from_numpy(v).to(device)
+                for k, v in run["stream"].batch_at(run["steps"] + i).items()}
+               for i in range(steps)]
+    torch.cuda.synchronize()
+    activity = ProfilerActivity.CUDA if device == "cuda" else ProfilerActivity.CPU
+    with profile(activities=[activity]) as prof:
+        t0 = time.perf_counter()
+        for b in batches:
+            model, opt, metrics = probe.train_step(model, opt, b)
+            float(metrics["loss"])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    busy_s, work_s, count, top = device_activity(prof)
+    emit(phase="train_profile", arch=TRAIN_ARCH, steps=steps, wall_s=wall,
+         ms_per_step=wall / steps * 1e3, device_busy_ms_per_step=busy_s / steps * 1e3,
+         device_idle_share=1 - busy_s / wall if wall else None, device_work_s=work_s,
+         device_activities_per_step=count / steps, top_device_ms=top,
+         seconds=time.perf_counter() - t_part, card=smi)
+
+
+def train_determinism(smi: str, run: dict) -> None:
+    """One microbatch's gradients (step 0's first sequence, remat on) at full
+    width, twice by default and once under
+    ``torch.use_deterministic_algorithms(True, warn_only=True)``, each timed
+    by CUDA events: whether the default is already bit for bit the same
+    (the embedding's gradient is an accumulating ``index_put_``) and what the
+    deterministic mode costs."""
+    from repro_torch.train.step import loss_and_grads
+
+    t_part = time.perf_counter()
+    model, bs = run["probe"].model, run["bs"]
+    mbatch = {k: v[:bs] for k, v in run["b0"].items()}
+
+    def timed():
+        a, b = _event(), _event()
+        a.record()
+        _, grads = loss_and_grads(model, mbatch)
+        b.record()
+        torch.cuda.synchronize()
+        return grads, a.elapsed_time(b)
+
+    g1, ms1 = timed()
+    g2, ms2 = timed()
+    same = all(torch.equal(g1[k], g2[k]) for k in g1)
+    del g2
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        g3, ms3 = timed()
+    finally:
+        torch.use_deterministic_algorithms(False)
+    same_det = all(torch.equal(g1[k], g3[k]) for k in g1)
+    emit(phase="train_determinism", arch=TRAIN_ARCH, tokens=int(mbatch["tokens"].numel()),
+         default_ms=[ms1, ms2], default_bit_identical=same,
+         deterministic_mode_ms=ms3, deterministic_mode_equal_to_default=same_det,
+         seconds=time.perf_counter() - t_part, card=smi)
+    check(same and same_det, "one microbatch's gradients at full width: bit for bit the "
+          "same twice by default and under the deterministic mode")
+
+
+def train_parity(smi: str, device: str = "cuda", layers: int = 2, seq: int = 64) -> None:
+    """An fp32 copy of the published widths at ``layers`` layers (TF32 off):
+    one step's loss and gradients (batch 1, ``seq`` tokens, remat on) on the
+    card and on the CPU from the same weights, the loss at rtol 1e-4 and
+    every gradient at rtol 1e-3 / atol 1e-5; then ``adamw_update`` fed the
+    CPU's gradients on both, the parameters and both moments at atol 1e-6;
+    and the card's gradients with remat off ``torch.equal`` to remat on."""
+    import copy
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_params
+    from repro_torch.train import AdamWConfig, adamw_init, adamw_update
+    from repro_torch.train.step import loss_and_grads
+
+    t_part = time.perf_counter()
+    tf32 = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        cfg = get_config(TRAIN_ARCH).with_(num_layers=layers, dtype="float32")
+        gen = torch.Generator(device=device).manual_seed(TRAIN_SEED)
+        card = init_params(cfg, generator=gen, device=device).requires_grad_(True)
+        host = copy.deepcopy(card).to("cpu")
+        chunk = np.random.default_rng(TRAIN_SEED).integers(0, cfg.vocab_size, (1, seq + 1))
+        batch = {"tokens": torch.from_numpy(chunk[:, :-1]),
+                 "labels": torch.from_numpy(chunk[:, 1:])}
+        out = {}
+        for name, model, dev in (("card", card, device), ("cpu", host, "cpu")):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            loss, grads = loss_and_grads(model, {k: v.to(dev) for k, v in batch.items()})
+            torch.cuda.synchronize()
+            out[name] = (loss.cpu(), {k: g.cpu() for k, g in grads.items()},
+                         time.perf_counter() - t0)
+        (loss_c, g_c, card_s), (loss_h, g_h, cpu_s) = out["card"], out["cpu"]
+        loss_ok = bool(torch.allclose(loss_c, loss_h, **TRAIN_TOL["loss"]))
+        grad_err = {k: float((g_c[k] - g_h[k]).abs().max()) for k in g_h}
+        grads_ok = all(torch.allclose(g_c[k], g_h[k], **TRAIN_TOL["grads"]) for k in g_h)
+        _, off = loss_and_grads(card, {k: v.to(device) for k, v in batch.items()},
+                                remat=False)
+        remat_equal = all(torch.equal(off[k].cpu(), g_c[k]) for k in g_c)
+        del off
+        opt_cfg = AdamWConfig(peak_lr=1e-3, warmup_steps=1)
+        states = {}
+        for name, model, dev in (("card", card, device), ("cpu", host, "cpu")):
+            params = dict(model.named_parameters())
+            state = adamw_init(params)
+            adamw_update(params, {k: g.to(dev) for k, g in g_h.items()}, state, opt_cfg)
+            states[name] = ({k: p.detach().cpu() for k, p in params.items()},
+                            {m: {k: t.cpu() for k, t in state[m].items()}
+                             for m in ("mu", "nu")})
+        (p_c, s_c), (p_h, s_h) = states["card"], states["cpu"]
+        adam_err = max(max(float((p_c[k] - p_h[k]).abs().max()) for k in p_h),
+                       *(float((s_c[m][k] - s_h[m][k]).abs().max())
+                         for m in ("mu", "nu") for k in p_h))
+        adam_ok = adam_err <= TRAIN_TOL["adamw"]["atol"]
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
+    worst = max(grad_err, key=grad_err.get)
+    emit(phase="train_parity", arch=TRAIN_ARCH, layers=layers, seq=seq,
+         loss_card=float(loss_c), loss_cpu=float(loss_h), loss_ok=loss_ok,
+         grads_ok=grads_ok, max_abs_grad_diff=grad_err[worst], worst_grad=worst,
+         max_abs_grad=float(g_h[worst].abs().max()), adamw_max_abs_diff=adam_err,
+         adamw_ok=adam_ok, remat_bit_identical=remat_equal, card_s=card_s, cpu_s=cpu_s,
+         tolerance=TRAIN_TOL, seconds=time.perf_counter() - t_part, card=smi)
+    check(loss_ok, f"fp32 loss on the card {float(loss_c)} against the CPU {float(loss_h)}")
+    check(grads_ok, f"fp32 gradients on the card against the CPU: {worst} off by "
+          f"{grad_err[worst]}")
+    check(adam_ok, f"adamw_update on the card against the CPU: off by {adam_err}")
+    check(remat_equal, "gradients with remat on and off are torch.equal on the card")
+
+
+def train_resume(smi: str, device: str = "cuda") -> None:
+    """The launcher in this process on the reduced arch with ``--ckpt-dir``
+    under ``build/`` (deleted at the end): an uninterrupted 6-step run, and
+    a 6-step run stopped by a SIGTERM after its third step (it checkpoints
+    and exits 0) then resumed to the end; every array of the two last
+    checkpoints equal."""
+    from repro_torch.train.checkpoint import latest_checkpoint
+
+    shutil.rmtree(TRAIN_CKPT, ignore_errors=True)
+    full, part = str(TRAIN_CKPT / "full"), str(TRAIN_CKPT / "part")
+    base = ["--arch", TRAIN_ARCH, "--reduced", "--device", device, "--steps", "6",
+            "--ckpt-every", "2", "--quiet"]
+    try:
+        t0 = time.perf_counter()
+        rc, _, err = launch_train(base + ["--ckpt-dir", full])
+        check(rc == 0, f"the uninterrupted run exited {rc}: {err[-5:]}")
+        with train_probe(stop_after=3):
+            rc, _, err = launch_train(base + ["--ckpt-dir", part])
+        check(rc == 0 and latest_checkpoint(part) == 3,
+              f"the run stopped at step 3 exited {rc} at {latest_checkpoint(part)}")
+        rc, _, err = launch_train(base + ["--ckpt-dir", part])
+        check(rc == 0, f"the resumed run exited {rc}: {err[-5:]}")
+        with np.load(os.path.join(full, "step_00000006", "arrays.npz")) as a, \
+                np.load(os.path.join(part, "step_00000006", "arrays.npz")) as b:
+            names = sorted(a.files)
+            equal = names == sorted(b.files) and all(np.array_equal(a[k], b[k])
+                                                     for k in names)
+        emit(phase="train_resume", arch=TRAIN_ARCH, reduced=True, stopped_at=3,
+             arrays=len(names), bit_identical=equal,
+             seconds=time.perf_counter() - t0, card=smi)
+        check(equal, "the resumed run's last checkpoint equals the uninterrupted run's")
+    finally:
+        shutil.rmtree(TRAIN_CKPT, ignore_errors=True)
+
+
+def train_families(smi: str, device: str = "cuda") -> None:
+    """The launcher in this process on every trainable family's reduced
+    arch, 2 steps each (exit 0), and on Whisper (exit 2: its audio frontend
+    is stubbed)."""
+    for arch, rc_want in [(a, 0) for a in TRAIN_FAMILIES] + [("whisper_medium", 2)]:
+        t0 = time.perf_counter()
+        rc, out, err = launch_train(["--arch", arch, "--reduced", "--device", device,
+                                     "--steps", "2"])
+        line = ((out if rc_want == 0 else err) or [""])[-1]
+        emit(phase="train_family", arch=arch, rc=rc, seconds=time.perf_counter() - t0,
+             line=line, card=smi)
+        check(rc == rc_want and (line.startswith("done at step 2") if rc_want == 0
+                                 else "stubbed" in line),
+              f"launch.train.main(--arch {arch} --reduced) exited {rc}: {line!r}")
+
+
+def train_phase(smi: str, device: str = "cuda", argv=TRAIN_ARGV) -> None:
+    """Phase 14: training through ``repro_torch.launch.train`` (the parts
+    above, in order), no hand-written kernel launched."""
+    t_phase = time.perf_counter()
+    release_pinned_cache()
+    for ops_fn in (ops.stencil2d, ops.stencil3d, ops.chain2d):
+        ops_fn.launches = 0
+    run = train_full(smi, device, argv)
+    train_profile(smi, run, device)
+    train_determinism(smi, run)
+    del run
+    gc.collect()
+    torch.cuda.empty_cache()
+    train_parity(smi, device)
+    train_resume(smi, device)
+    train_families(smi, device)
+    launches = _kernel_launches()
+    check(all(v == 0 for v in launches.values()),
+          f"training launches no hand-written kernel: {launches}")
+    emit(phase="train_done", seconds=time.perf_counter() - t_phase, launches=launches,
+         card=smi)
+
+
 def device_activity(prof, top: int = 12):
     """Of a ``torch.profiler`` run: the seconds the card was busy (the union
     of its kernels' and copies' intervals), the seconds of work they did
@@ -2390,11 +2940,18 @@ def main() -> int:
                     help="only phase 12, moe decode (no result line)")
     ap.add_argument("--ssm", action="store_true",
                     help="only phase 13, ssm, hybrid and encdec decode (no result line)")
+    ap.add_argument("--train", action="store_true",
+                    help="only phase 14, training (no result line)")
+    ap.add_argument("--chunked", metavar="DIR",
+                    help="only phase 8's chunked run, held against DIR/want.json "
+                         "(the whole run starts this in a child process)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on a GPU",
               file=sys.stderr)
         return 1
+    if args.chunked:
+        return chunked_child(args.chunked)
     n2d, n3d, nooc, reps, napp2, napp3 = (16384, 512, 24576, 20, 8192, 256)
     if args.small:
         n2d, n3d, nooc, reps, napp2, napp3 = (1024, 64, 2048, 5, 512, 32)
@@ -2408,10 +2965,10 @@ def main() -> int:
         disk_phase(napp2, cl2d_baselines(napp2))
         return 0
     if args.mesh:
-        mesh_phase(napp2, cl2d_baselines(napp2), smi, reps=reps)
+        mesh_phase(napp2, cl2d_baselines(napp2)[f"at{CUT_STEPS}"], smi, reps=reps)
         return 0
     if args.serve:
-        serve_phase(napp2, cl2d_baselines(napp2), smi)
+        serve_phase(napp2, cl2d_baselines(napp2)[f"at{CUT_STEPS}"], smi)
         return 0
     if args.model:
         model_phase(smi)
@@ -2421,6 +2978,9 @@ def main() -> int:
         return 0
     if args.ssm:
         ssm_phase(smi)
+        return 0
+    if args.train:
+        train_phase(smi)
         return 0
     build_phase()
     path = kernels_phase(n2d, n3d, reps)
@@ -2434,15 +2994,23 @@ def main() -> int:
     slot_pool_phase(nooc // 4, steps=4)
     torch.cuda.empty_cache()
     baseline = apps_phase(napp2, napp3)
-    disk_phase(napp2, baseline)
-    mesh_phase(napp2, baseline, smi, reps=reps)
+    chunked = disk_phase(napp2, baseline, chunked_apart=True)
+    try:
+        at = baseline.pop(f"at{CUT_STEPS}")
+        del baseline
+        gc.collect()
+        mesh_phase(napp2, at, smi, reps=reps)
+        chunked.join()
+    finally:
+        chunked.stop()
     gc.collect()
-    serve_phase(napp2, baseline, smi)
-    del baseline
+    serve_phase(napp2, at, smi)
+    del at
     gc.collect()
     model_phase(smi)
     moe_phase(smi)
     ssm_phase(smi)
+    train_phase(smi)
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": SOURCES[name][0],
          "replaces": SOURCES[name][1], "launches": launches[name],

@@ -1,0 +1,171 @@
+"""Fault-tolerant training launcher.
+
+Ported from ``src/repro/launch/train.py``, with its survival story on one
+device:
+  * resume: on start, restore the newest valid checkpoint in --ckpt-dir
+    (atomic commits mean a SIGKILL mid-write never corrupts; the preemption
+    test kills -9 and resumes bitwise-identically);
+  * deterministic data: the stream is counter-keyed by (seed, step, host),
+    so resuming at step k replays exactly batch k without reading history;
+  * straggler mitigation: an input prefetch thread and a per-step deadline
+    watchdog (steps slower than --straggler-factor x the median are logged
+    and counted);
+  * SIGTERM (preemption notice): checkpoint at once, exit 0.
+
+``--device`` is new (``cuda`` by default, which raises where there is no
+card).  Two exits with code 2 where the reference differs: a
+``--model-parallel`` other than 1 (meshes are ROADMAP A14(e)), and an encdec
+arch, whose audio frontend is stubbed in both packages so no encoder inputs
+exist (the reference's launcher ends in an ``AttributeError`` there).  Like
+the reference's, it passes no vision patches: a vlm trains as its LM.
+
+Usage (reduced config, CPU):
+  PYTHONPATH=src python -m repro_torch.launch.train --arch llama3_2_1b \\
+      --reduced --device cpu --steps 20 --ckpt-dir /tmp/ckpt --ckpt-every 5
+"""
+from __future__ import annotations
+
+import argparse
+import signal
+import sys
+import time
+
+
+def state_tree(model, opt_state):
+    """The checkpoint's tree of ``model`` and its AdamW state, in the
+    reference launcher's layout: ``params`` and ``opt`` (``mu``, ``nu``,
+    ``step``), the layers stacked (``models/weights.py::tensor_tree``)."""
+    from repro_torch.models.weights import tensor_tree
+
+    return {"params": tensor_tree(model),
+            "opt": {"mu": tensor_tree(model, opt_state["mu"]),
+                    "nu": tensor_tree(model, opt_state["nu"]),
+                    "step": opt_state["step"]}}
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", required=True)
+    ap.add_argument("--reduced", action="store_true")
+    ap.add_argument("--steps", type=int, default=20)
+    ap.add_argument("--batch", type=int, default=4)
+    ap.add_argument("--seq", type=int, default=64)
+    ap.add_argument("--lr", type=float, default=3e-4)
+    ap.add_argument("--microbatches", type=int, default=1)
+    ap.add_argument("--ckpt-dir", default=None)
+    ap.add_argument("--ckpt-every", type=int, default=10)
+    ap.add_argument("--keep", type=int, default=3)
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--model-parallel", type=int, default=1)
+    ap.add_argument("--straggler-factor", type=float, default=3.0)
+    ap.add_argument("--sleep-per-step", type=float, default=0.0)  # test hook
+    ap.add_argument("--device", default="cuda",
+                    help="where the model trains: cuda (default) or cpu")
+    ap.add_argument("--quiet", action="store_true")
+    args = ap.parse_args(argv)
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config, get_reduced_config
+    from repro_torch.core.device import resolve_device
+    from repro_torch.models import init_params
+    from repro_torch.models.weights import load_tree
+    from repro_torch.train import AdamWConfig, adamw_init, make_train_step
+    from repro_torch.train.checkpoint import (
+        latest_checkpoint, restore_checkpoint, save_checkpoint)
+    from repro_torch.train.data import DataConfig, PrefetchIterator, TokenStream
+
+    try:
+        cfg = (get_reduced_config(args.arch) if args.reduced
+               else get_config(args.arch))
+    except KeyError as e:
+        print(f"repro_torch.launch.train: {e}", file=sys.stderr)
+        return 2
+    if args.model_parallel != 1:
+        print(f"--model-parallel {args.model_parallel}: meshes are not ported yet "
+              f"(ROADMAP A14(e))", file=sys.stderr)
+        return 2
+    if cfg.encdec:
+        print(f"{cfg.name}: encdec trains on encoder inputs from its audio frontend, "
+              f"which is stubbed; this launcher has none to give it", file=sys.stderr)
+        return 2
+    dev = resolve_device(args.device)
+    opt_cfg = AdamWConfig(peak_lr=args.lr, warmup_steps=max(2, args.steps // 10),
+                          total_steps=args.steps)
+
+    model = init_params(cfg, generator=torch.Generator(device=dev).manual_seed(args.seed),
+                        device=dev)
+    opt_state = adamw_init(dict(model.named_parameters()))
+    start_step = 0
+
+    if args.ckpt_dir:
+        newest = latest_checkpoint(args.ckpt_dir)
+        if newest is not None:
+            _, state = restore_checkpoint(args.ckpt_dir, newest,
+                                          state_tree(model, opt_state))
+            load_tree(model, state["params"])
+            load_tree(model, state["opt"]["mu"], values=opt_state["mu"])
+            load_tree(model, state["opt"]["nu"], values=opt_state["nu"])
+            opt_state["step"] = state["opt"]["step"].to(dev)
+            start_step = newest
+            if not args.quiet:
+                print(f"resumed from step {newest}", flush=True)
+
+    train_step = make_train_step(cfg, opt_cfg, microbatches=args.microbatches)
+    data = TokenStream(DataConfig(cfg.vocab_size, args.seq, args.batch,
+                                  seed=args.seed))
+    it = PrefetchIterator(data, start_step=start_step)
+
+    stop = {"now": False}
+
+    def on_sigterm(signum, frame):
+        stop["now"] = True
+
+    previous = signal.signal(signal.SIGTERM, on_sigterm)
+
+    step_times = []
+    stragglers = 0
+    step = start_step
+    try:
+        while step < args.steps:
+            t0 = time.perf_counter()
+            step, batch = next(it)
+            if step >= args.steps:
+                break
+            tb = {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
+            model, opt_state, metrics = train_step(model, opt_state, tb)
+            loss = float(metrics["loss"])
+            dt = time.perf_counter() - t0
+            if args.sleep_per_step:
+                time.sleep(args.sleep_per_step)
+            step_times.append(dt)
+            med = float(np.median(step_times[-20:]))
+            if len(step_times) > 3 and dt > args.straggler_factor * med:
+                stragglers += 1
+                if not args.quiet:
+                    print(f"straggler: step {step} took {dt:.2f}s "
+                          f"(median {med:.2f}s)", flush=True)
+            if not args.quiet:
+                print(f"step {step + 1}/{args.steps} loss={loss:.4f} "
+                      f"gnorm={float(metrics['grad_norm']):.3f} {dt:.2f}s",
+                      flush=True)
+            step += 1
+            if args.ckpt_dir and (step % args.ckpt_every == 0 or step == args.steps
+                                  or stop["now"]):
+                save_checkpoint(args.ckpt_dir, step, state_tree(model, opt_state),
+                                keep=args.keep)
+            if stop["now"]:
+                if not args.quiet:
+                    print("SIGTERM: checkpointed, exiting", flush=True)
+                break
+    finally:
+        it.close()
+        signal.signal(signal.SIGTERM, previous)
+    if not args.quiet:
+        print(f"done at step {step}; stragglers flagged: {stragglers}", flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

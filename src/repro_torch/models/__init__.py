@@ -3,8 +3,9 @@
 attention with MLA, moe, the Mamba-2 scan and decode in ``ssm``,
 transformer), the weights carried across from its parameter trees, and
 layer-weight streaming for serving the dense and vlm families
-(``offload.StreamedDecoder``).  Training and sharding are later slices
-(ROADMAP A14)."""
+(``offload.StreamedDecoder``), and the training loss (``loss_fn``, with
+``forward(remat=True)``; the optimizer and the step are in
+``repro_torch.train``).  Sharding is a later slice (ROADMAP A14(e))."""
 from .config import ModelConfig
 from .transformer import (
     CacheFullError,
@@ -13,7 +14,8 @@ from .transformer import (
     forward,
     init_cache,
     init_params,
+    loss_fn,
 )
 
 __all__ = ["CacheFullError", "ModelConfig", "Transformer", "decode_step", "forward",
-           "init_cache", "init_params"]
+           "init_cache", "init_params", "loss_fn"]

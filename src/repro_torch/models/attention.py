@@ -6,8 +6,11 @@ Ported from ``src/repro/models/attention.py``.  As there, no flash kernel is
 used: the chunk loop is plain torch ops, the scores and the softmax state are
 fp32, masked scores take ``NEG_INF = -1e30`` (not ``-inf``), the last chunk is
 padded and masked by ``kv_pos < Skv``, and the output is ``o / max(l, 1e-30)``.
-The reference's ``jax.checkpoint`` around the chunk body is a training concern;
-callers run these under ``torch.inference_mode()``.
+The reference also wraps the chunk body in ``jax.checkpoint``; here the only
+recompute is ``forward(remat=True)``'s, a layer at a time, so a layer's
+backward holds every chunk's fp32 scores (O(S^2) a layer, not O(S·chunk)).
+All of it differentiates as written: training runs it under autograd,
+serving under ``torch.inference_mode()``.
 
 ``mla_decode_attention`` masks a ``(B,)`` ``cur_len`` per row, as
 ``decode_attention`` does.  The reference's builds a ``(1, L)`` mask from

@@ -15,6 +15,9 @@ Three things are the port's own:
 * the combine adds each token's expert outputs in the reference's update
   order (expert ascending, then slot) in the activations' dtype, with no
   atomics, so it gives the same bits on every run on the card (``_combine``);
+  the tokens' gather into the (E, C, d) stack is ``F.embedding``, whose
+  backward adds a token's rows in a fixed order too (indexing's accumulates
+  in thread order on the CPU);
 * expert parallelism (``axis``/``axis_size > 1``, the reference's
   ``all_to_all`` path) is not ported yet (ROADMAP A14(e)).
 """
@@ -121,7 +124,8 @@ def moe_ffn(moe, x: torch.Tensor, cfg, *, axis: Optional[str] = None,
     tokens = x.reshape(-1, d)
     T = tokens.shape[0]
     r = route(moe.router, tokens, cfg)
-    xe = tokens[r.tok_idx] * r.valid[..., None].to(tokens.dtype)      # (E, C, d)
+    # the gather as F.embedding: its backward is deterministic (see _combine)
+    xe = F.embedding(r.tok_idx, tokens) * r.valid[..., None].to(tokens.dtype)  # (E, C, d)
     ex = moe.experts
     h = F.silu(torch.bmm(xe, ex.w_gate)) * torch.bmm(xe, ex.w_up)
     ye = torch.bmm(h, ex.w_down)                                       # (E, C, d)

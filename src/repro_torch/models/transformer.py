@@ -1,5 +1,5 @@
-"""Model assembly for every family: init, forward (prefill) and decode_step
-(serving).
+"""Model assembly for every family: init, forward (training and prefill),
+loss_fn and decode_step (serving).
 
 Ported from ``src/repro/models/transformer.py``, as ``nn.Module``s that keep
 the reference's layouts, so that weights carry across without a transpose
@@ -32,11 +32,17 @@ A moe block holds only what its layer runs: ``mlp`` in the first
 every layer both (one ``lax.scan`` covers the stack and ``lax.cond`` picks
 one), which at DeepSeek-V2-Lite's widths is 2.3 B parameters never read.
 
-``forward``'s ``mesh`` and ``remat`` are left out (sharding and training are
-later slices), and so is ``loss_fn``.  Encdec decode reads ``enc_k``/
-``enc_v`` as already-projected K/V that the caller fills, as in the
-reference, whose launcher stubs them; neither package computes them from an
-encoder pass.
+Training: ``forward(remat=True)`` runs each layer body through
+``torch.utils.checkpoint`` (non-reentrant), as the reference wraps each
+``lax.scan`` body in ``jax.checkpoint``: the hybrid's checkpointed body
+holds its shared block at the sites, and encdec checkpoints its encoder and
+decoder bodies separately.  ``loss_fn`` is the reference's NLL plus a 1e-4
+z-loss.  Parameters are made with ``requires_grad=False`` (serving runs
+under ``torch.inference_mode``); the trainer turns gradients on
+(``train/step.py``).  ``forward``'s ``mesh`` is left out (sharding is
+ROADMAP A14(e)).  Encdec decode reads ``enc_k``/``enc_v`` as
+already-projected K/V that the caller fills, as in the reference, whose
+launcher stubs them; neither package computes them from an encoder pass.
 
 Decode differs from the reference in one place on purpose: the caches (K/V,
 MLA's ``ckv``/``kr``, the hybrid's shared ``sk``/``sv``, the ssm and conv
@@ -52,7 +58,9 @@ from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..core.device import DeviceSpec, resolve_device
 from .attention import decode_attention, flash_attention, mla_decode_attention, mla_expand
@@ -411,47 +419,100 @@ def _head(model: Transformer, h: torch.Tensor) -> torch.Tensor:
                      getattr(model, "lm_head", None))
 
 
+def _layer(body, remat: bool):
+    """``body`` as it is, or run through ``torch.utils.checkpoint`` so that
+    its activations are recomputed in the backward pass (the reference's
+    ``_maybe_ckpt``)."""
+    if not remat:
+        return body
+
+    def checkpointed(*args):
+        return checkpoint(body, *args, use_reentrant=False)
+    return checkpointed
+
+
 def forward(model: Transformer, tokens: torch.Tensor, *,
             patches: Optional[torch.Tensor] = None,
-            enc_inputs: Optional[torch.Tensor] = None) -> torch.Tensor:
+            enc_inputs: Optional[torch.Tensor] = None,
+            remat: bool = False) -> torch.Tensor:
     """Full-sequence forward of ``tokens`` (B, S); returns logits (B, S, vocab).
     vlm: ``patches`` (B, n_patch, d) take the first ``n_patch`` positions.
     moe: each layer routes all B·S tokens jointly, with the capacity of B·S
     tokens, so a token dropped here may be kept by a decode step.
     encdec: ``enc_inputs`` (B, S_enc, d) are the (stubbed) frontend's frame
-    embeddings that the encoder runs over."""
+    embeddings that the encoder runs over; without them it raises
+    ``ValueError``.  ``remat``: recompute each layer's activations in the
+    backward pass instead of keeping them."""
     cfg = model.cfg
-    h = model.embed[tokens]
+    # F.embedding, not ``embed[tokens]``: its backward adds the rows in an
+    # order fixed by the indices (sorted on CUDA), where indexing's
+    # accumulating ``index_put_`` adds them in thread order on the CPU, so
+    # two equal steps could differ in the last bits.
+    h = F.embedding(tokens, model.embed)
     if cfg.family == "vlm" and patches is not None:
         npatch = patches.shape[1]
         h = torch.cat([patches.to(h.dtype), h[:, npatch:]], dim=1)
     if cfg.family in ("ssm", "hybrid"):
         every = cfg.shared_attn_every
-        for idx, blk in enumerate(model.blocks):
+
+        def mamba_body(h, blk, shared):
             y, _ = mamba2_forward(blk.mamba, rms_norm(h, blk.ln, cfg.rms_eps), cfg)
             h = h + y
-            if cfg.family == "hybrid" and idx % every == every - 1:
-                h = _shared_attn_block(model.shared_block, h, cfg)
+            return h if shared is None else _shared_attn_block(shared, h, cfg)
+        body = _layer(mamba_body, remat)
+        for idx, blk in enumerate(model.blocks):
+            site = cfg.family == "hybrid" and idx % every == every - 1
+            h = body(h, blk, model.shared_block if site else None)
     elif cfg.family == "encdec":
+        if enc_inputs is None:
+            raise ValueError(
+                f"{cfg.name}: encdec needs enc_inputs, the frame embeddings of its "
+                f"audio frontend, which is stubbed in both packages")
+
+        def enc_body(enc, blk):
+            enc = _attn_sublayer(blk, enc, cfg, causal=False, use_rope=False)
+            return _ffn_sublayer(blk, enc, cfg)
+
+        def dec_body(h, blk, enc):
+            h = _attn_sublayer(blk, h, cfg, use_rope=False)
+            h = _cross_sublayer(blk, h, cfg, enc)
+            return _ffn_sublayer(blk, h, cfg)
         h = h + _positions(h.shape[1], cfg, h)
         enc = enc_inputs.to(h.dtype)
         enc = enc + _positions(enc.shape[1], cfg, enc)
+        body = _layer(enc_body, remat)
         for blk in model.enc_blocks:
-            enc = _attn_sublayer(blk, enc, cfg, causal=False, use_rope=False)
-            enc = _ffn_sublayer(blk, enc, cfg)
+            enc = body(enc, blk)
         enc = rms_norm(enc, model.enc_norm, cfg.rms_eps)
+        body = _layer(dec_body, remat)
         for blk in model.blocks:
-            h = _attn_sublayer(blk, h, cfg, use_rope=False)
-            h = _cross_sublayer(blk, h, cfg, enc)
-            h = _ffn_sublayer(blk, h, cfg)
+            h = body(h, blk, enc)
     else:
+        def body(h, blk):
+            h = _mla_sublayer(blk, h, cfg) if cfg.mla else _attn_sublayer(blk, h, cfg)
+            return _ffn_sublayer(blk, h, cfg)
+        body = _layer(body, remat)
         for blk in model.blocks:
-            if cfg.mla:
-                h = _mla_sublayer(blk, h, cfg)
-            else:
-                h = _attn_sublayer(blk, h, cfg)
-            h = _ffn_sublayer(blk, h, cfg)
+            h = body(h, blk)
     return _head(model, h)
+
+
+def loss_fn(model: Transformer, tokens: torch.Tensor, labels: torch.Tensor, *,
+            patches: Optional[torch.Tensor] = None,
+            enc_inputs: Optional[torch.Tensor] = None,
+            remat: bool = True) -> torch.Tensor:
+    """The reference's training loss, a 0-d fp32 tensor: the mean over
+    every position of the NLL of ``labels`` (B, S) under fp32 logits plus
+    the PaLM z-loss ``1e-4 * logsumexp**2``.  The picked logit is a gather
+    (the reference's masked sum over the vocabulary adds only zeros beside
+    it, so the two are equal)."""
+    logits = forward(model, tokens, patches=patches, enc_inputs=enc_inputs,
+                     remat=remat).float()
+    lse = torch.logsumexp(logits, dim=-1)
+    picked = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    nll = lse - picked
+    zloss = 1e-4 * torch.square(lse)
+    return torch.mean(nll + zloss)
 
 
 # =============================== decode =======================================

@@ -11,11 +11,16 @@ reference's tree gives every layer both ``moe`` and ``mlp`` when the config
 has dense layers: the unused slices are accepted and not loaded, and
 ``params_to_numpy`` writes them as zeros.  Leaves are numpy arrays (the
 tests pass ``np.asarray`` of JAX arrays; bfloat16 leaves, ``ml_dtypes``'
-``bfloat16``, are read bit for bit).
+``bfloat16``, are read bit for bit) or torch tensors.
+
+The optimizer's state crosses in the same layout: ``tensor_tree(model,
+values=mu)`` and ``load_tree(model, tree, values=mu)`` carry a tensor per
+parameter name (AdamW's ``mu``/``nu``) to and from the reference's stacked
+tree, as ``train/checkpoint.py`` writes it.
 """
 from __future__ import annotations
 
-from typing import Any, Dict
+from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
@@ -53,6 +58,52 @@ def _leaf_paths(tree: Dict[str, Any], prefix=()):
             yield prefix + (key,)
 
 
+def _slices(model: Transformer):
+    """(name, parameter, tree path, layer) of every parameter: ``layer`` is
+    its index in a stacked list (``blocks``, ``enc_blocks``), else None."""
+    for name, p in model.named_parameters():
+        parts = name.split(".")
+        if parts[0] in _STACKED:
+            yield name, p, (parts[0],) + tuple(parts[2:]), int(parts[1])
+        else:
+            yield name, p, tuple(parts), None
+
+
+@torch.no_grad()
+def load_tree(model: Transformer, tree: Dict[str, Any],
+              values: Optional[Dict[str, torch.Tensor]] = None) -> None:
+    """Copy the reference-layout ``tree`` (numpy or torch leaves; ``blocks``
+    and ``enc_blocks`` stacked over the layers) into ``model``'s parameters,
+    or, given ``values`` (parameter name -> tensor, such as the optimizer's
+    ``mu``), into those tensors; each is cast to its target's dtype.  The
+    slice of a leaf that a layer does not hold (a moe layer's unused ``mlp``
+    or ``moe``) is skipped.  Raises ``ValueError`` when a leaf is missing,
+    extra or of another shape."""
+    seen = set()
+    for name, p, path, layer in _slices(model):
+        if layer is not None:
+            stacked = _leaf(tree, path, name)
+            if not isinstance(stacked, torch.Tensor):
+                stacked = np.asarray(stacked)
+            layers = len(getattr(model, path[0]))
+            if tuple(stacked.shape[:1]) != (layers,):
+                raise ValueError(f"{name}: tree leaf of shape {tuple(stacked.shape)}, "
+                                 f"the model wants {layers} stacked layers")
+            arr = stacked[layer]
+        else:
+            arr = _leaf(tree, path, name)
+        seen.add(path)
+        t = arr if isinstance(arr, torch.Tensor) else _tensor(arr)
+        target = p if values is None else values[name]
+        if tuple(t.shape) != tuple(target.shape):
+            raise ValueError(f"{name}: tree leaf of shape {tuple(t.shape)}, "
+                             f"the model wants {tuple(target.shape)}")
+        target.copy_(t)
+    extra = set(_leaf_paths(tree)) - seen
+    if extra:
+        raise ValueError(f"tree leaves the model does not have: {sorted(extra)}")
+
+
 @torch.no_grad()
 def params_from_numpy(cfg: ModelConfig, tree: Dict[str, Any], *,
                       device: DeviceSpec = "cuda") -> Transformer:
@@ -62,29 +113,7 @@ def params_from_numpy(cfg: ModelConfig, tree: Dict[str, Any], *,
     ``a_log`` and ``d_skip``).  Raises ``ValueError`` when a leaf is missing,
     extra or of another shape."""
     model = Transformer(cfg, device=device)
-    seen = set()
-    for name, p in model.named_parameters():
-        parts = name.split(".")
-        if parts[0] in _STACKED:
-            path = (parts[0],) + tuple(parts[2:])
-            stacked = np.asarray(_leaf(tree, path, name))
-            layers = len(getattr(model, parts[0]))
-            if stacked.shape[:1] != (layers,):
-                raise ValueError(f"{name}: tree leaf of shape {stacked.shape}, the "
-                                 f"model wants {layers} stacked layers")
-            arr = stacked[int(parts[1])]
-        else:
-            path = tuple(parts)
-            arr = _leaf(tree, path, name)
-        seen.add(path)
-        t = _tensor(arr)
-        if tuple(t.shape) != tuple(p.shape):
-            raise ValueError(f"{name}: tree leaf of shape {tuple(t.shape)}, "
-                             f"the model wants {tuple(p.shape)}")
-        p.copy_(t)
-    extra = set(_leaf_paths(tree)) - seen
-    if extra:
-        raise ValueError(f"tree leaves the model does not have: {sorted(extra)}")
+    load_tree(model, tree)
     return model
 
 
@@ -93,42 +122,45 @@ def _numpy(t: torch.Tensor) -> np.ndarray:
     return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
 
 
-def _put(tree: Dict[str, Any], name: str, value: Any) -> None:
-    """Set ``tree``'s leaf at the dotted ``name``, making the dicts on the way."""
-    *path, last = name.split(".")
+def _put(tree: Dict[str, Any], path, value: Any) -> None:
+    """Set ``tree``'s leaf at ``path``, making the dicts on the way."""
+    *path, last = path
     for key in path:
         tree = tree.setdefault(key, {})
     tree[last] = value
 
 
-def _stack(blocks) -> Dict[str, Any]:
-    """One nested tree of ``blocks``' parameters, each stacked over the
-    layers; a layer's slice of a leaf its block does not hold is zeros."""
-    layers = [dict(blk.named_parameters()) for blk in blocks]
-    first: Dict[str, torch.Tensor] = {}
-    for held in layers:
-        for name, p in held.items():
-            first.setdefault(name, p)
-    tree: Dict[str, Any] = {}
-    for name, p in first.items():
-        zeros = np.zeros_like(_numpy(p))
-        _put(tree, name, np.stack([_numpy(held[name]) if name in held else zeros
-                                   for held in layers]))
-    return tree
-
-
 @torch.no_grad()
-def params_to_numpy(model: Transformer) -> Dict[str, Any]:
-    """The reference's parameter tree of ``model``'s weights (``blocks`` and
-    ``enc_blocks`` stacked along a leading layer axis, every other parameter
-    at its nested path); bfloat16 comes back as float32, exactly (numpy has
-    no bfloat16).  A layer's slice of a leaf its block does not hold (the
-    reference's unused ``moe`` or ``mlp``) is zeros."""
+def tensor_tree(model: Transformer,
+                values: Optional[Dict[str, torch.Tensor]] = None) -> Dict[str, Any]:
+    """The reference-layout tree of ``model``'s parameters, or of ``values``
+    (parameter name -> tensor, such as the optimizer's ``mu``): host copies
+    in their own dtypes, ``blocks`` and ``enc_blocks`` stacked along a
+    leading layer axis, every other tensor at its nested path.  A layer's
+    slice of a leaf its block does not hold (the reference's unused ``moe``
+    or ``mlp``) is zeros."""
     tree: Dict[str, Any] = {}
-    for name, p in model.named_parameters():
-        if name.split(".")[0] not in _STACKED:
-            _put(tree, name, _numpy(p))
-    for key in _STACKED:
-        if hasattr(model, key):
-            tree[key] = _stack(getattr(model, key))
+    stacked: Dict[tuple, Dict[int, torch.Tensor]] = {}
+    for name, p, path, layer in _slices(model):
+        t = (p if values is None else values[name]).detach().to("cpu", copy=True)
+        if layer is None:
+            _put(tree, path, t)
+        else:
+            stacked.setdefault(path, {})[layer] = t
+    for path, held in stacked.items():
+        zeros = torch.zeros_like(next(iter(held.values())))
+        layers = len(getattr(model, path[0]))
+        _put(tree, path, torch.stack([held.get(li, zeros) for li in range(layers)]))
     return tree
+
+
+def _map(tree: Dict[str, Any], fn) -> Dict[str, Any]:
+    return {k: _map(v, fn) if isinstance(v, dict) else fn(v) for k, v in tree.items()}
+
+
+def params_to_numpy(model: Transformer) -> Dict[str, Any]:
+    """The reference's parameter tree of ``model``'s weights
+    (``tensor_tree`` as numpy); bfloat16 comes back as float32, exactly
+    (numpy has no bfloat16).  A layer's slice of a leaf its block does not
+    hold (the reference's unused ``moe`` or ``mlp``) is zeros."""
+    return _map(tensor_tree(model), _numpy)

@@ -1,6 +1,6 @@
-"""The port stands alone: ``repro_torch`` (its apps included) and
-``chip_smoke.py`` import neither JAX nor the JAX package, and its entry points
-refuse to fall back to the CPU."""
+"""The port stands alone: ``repro_torch`` (its apps and its trainer included)
+and ``chip_smoke.py`` import neither JAX nor the JAX package, and its entry
+points refuse to fall back to the CPU."""
 import ast
 import os
 import subprocess
@@ -25,6 +25,8 @@ import repro_torch, repro_torch.apps, repro_torch.core, repro_torch.kernels, rep
 import repro_torch.configs, repro_torch.models, repro_torch.launch.serve
 import repro_torch.models.offload, repro_torch.models.weights, repro_torch.models.moe
 import repro_torch.models.ssm
+import repro_torch.train, repro_torch.train.checkpoint, repro_torch.train.data
+import repro_torch.launch.train
 import chip_smoke
 from repro_torch.core import Session
 s = Session("ooc", device="cpu", num_tiles=2, capacity_bytes=float("inf"))
@@ -35,6 +37,8 @@ assert repro_torch.launch.serve.main(["--arch", "llama3_2_1b", "--reduced",
                                       "--device", "cpu", "--offload", "--quiet"]) == 0
 assert repro_torch.launch.serve.main(["--arch", "mamba2_1_3b", "--reduced",
                                       "--device", "cpu", "--quiet"]) == 0
+assert repro_torch.launch.train.main(["--arch", "llama3_2_1b", "--reduced",
+                                      "--device", "cpu", "--steps", "2", "--quiet"]) == 0
 assert "jax" not in [m.split(".")[0] for m in sys.modules if sys.modules[m] is not None]
 print("isolated")
 """
@@ -101,6 +105,15 @@ def test_model_decode_never_falls_back_to_cpu():
                 init_cache(cfg, 1, 4)
             with pytest.raises(RuntimeError, match="CUDA is not available"):
                 launch_serve.main(["--arch", arch, "--reduced", "--quiet"])
+
+
+def test_training_never_falls_back_to_cpu():
+    from repro_torch.launch import train as launch_train
+
+    if torch.cuda.is_available():
+        pytest.skip("this machine has a card: the launcher would train on it")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        launch_train.main(["--arch", "llama3_2_1b", "--reduced", "--steps", "1", "--quiet"])
 
 
 def test_chip_smoke_fails_without_a_card():
