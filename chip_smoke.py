@@ -14,6 +14,7 @@
     python3 chip_smoke.py --moe      # only phase 12, moe decode
     python3 chip_smoke.py --ssm      # only phase 13, ssm, hybrid and encdec decode
     python3 chip_smoke.py --train    # only phase 14, training
+    python3 chip_smoke.py --lm-mesh  # only phase 15, the LM mesh paths
 
 Phases, each of which asserts (any failure exits non-zero):
 
@@ -201,8 +202,38 @@ Phases, each of which asserts (any failure exits non-zero):
    the launcher on every trainable family's reduced arch (2 steps, exit 0;
    Whisper exits 2).  No hand-written kernel launches.
 
+15. LM mesh — the sharded paths of ``repro_torch.distributed`` on four
+   ranks on the one card: processes spawned by ``torch.multiprocessing``,
+   one gloo group (NCCL refuses two ranks on one card), CUDA tensors,
+   joined through the package's ``launch/mesh.py::init_ranks``, which
+   routes the functional all-gather through the c10d one on such a group
+   (PyTorch 2.11's crashes on gloo CUDA tensors).  First, one rank with no
+   mesh, on the card: the launcher's Llama 3.2 1B (published config,
+   bf16) for 3 steps of 4 x 512 tokens at lr 3e-5, the fp32 2-layer
+   copy's loss and gradients, and Qwen3-MoE 30B-A3B's teacher-forced decode (batch 4, 8 steps) at 2
+   layers in fp32 and 8 in bf16, every routing logged.  Then the four
+   ranks: the fp32 2-layer Llama's loss and gradients on (data=2,
+   model=2) against one rank (loss rtol 1e-4, gradients rtol 1e-3 / atol
+   1e-5, TF32 off); the Qwen3-MoE decodes expert parallel on (data=1,
+   model=4), 32 experts a rank (the fp32 copy's routing equal and logits
+   rtol 1e-4 / atol 1e-5; the bf16 one's steps before the first call
+   whose chosen experts differ within atol 2e-2, and every routing
+   difference up to it a near-tie at bf16 resolution, ``routing_flip``);
+   the int8 pod all-reduce of a 16 MB gradient a rank on (pod=4) with
+   CUDA tensors against the same inputs as CPU tensors (phase 1 payloads
+   equal, phase 2 within one step, the mean within one
+   quantisation step), timed beside a plain all-reduce; and
+   ``launch/train.py``'s ``main`` with ``--model-parallel 2 --backend
+   gloo`` on the bf16 Llama (losses finite, falling and equal on every
+   rank; ms a step against one rank; the second step's collectives under
+   ``CommDebugMode``, bytes by op and group size).  Beside them, in two
+   child processes, ``repro_torch.launch.dryrun`` on Llama 3.2 1B x
+   ``train_4k`` and Qwen3-MoE x ``decode_32k`` on the 256- and 512-rank
+   production meshes (host only, fake tensors), each record printed.  No
+   hand-written kernel launches (counted in the parent and on every rank).
+
 Every line but the last two is a JSON record.  The line before the last
-JSON ``ok`` line lists every ported kernel (phases 7 to 14 launch none of
+JSON ``ok`` line lists every ported kernel (phases 7 to 15 launch none of
 them: the apps' loops and the models' layers are torch ops); the card's ``nvidia-smi`` name and power
 limit are printed on their own line before it.  The script
 imports nothing of JAX or of the JAX package.
@@ -2014,10 +2045,12 @@ def moe_weight_bytes(cfg) -> int:
 class routing_log:
     """Within the block, every routing decision of the port's ``moe_ffn``
     (``models.moe.route``, called by name) appends its ``topk_idx`` and
-    ``probs`` to ``calls``, on the CPU."""
+    ``probs`` to ``calls``, on the CPU; with ``inputs``, the router's input
+    tokens (fp32) to ``inputs``."""
 
-    def __init__(self):
+    def __init__(self, inputs: bool = False):
         self.calls = []
+        self.inputs = [] if inputs else None
 
     def __enter__(self):
         from repro_torch.models import moe as moe_mod
@@ -2027,6 +2060,8 @@ class routing_log:
         def logged(router, tokens, cfg):
             r = self._route(router, tokens, cfg)
             self.calls.append((r.topk_idx.cpu(), r.probs.cpu()))
+            if self.inputs is not None:
+                self.inputs.append(tokens.float().cpu())
             return r
         moe_mod.route = logged
         return self
@@ -2500,10 +2535,11 @@ class train_probe:
     current stream and keep their model, optimizer state and metrics, and
     ``train.step.adamw_update`` is timed the same way.  ``before_first(model)``
     runs once before the first step; with ``stop_after`` a SIGTERM is raised
-    after that many steps, so the launcher checkpoints and exits 0."""
+    after that many steps, so the launcher checkpoints and exits 0.
+    ``around(i)``, a context manager, is entered around step ``i``."""
 
-    def __init__(self, before_first=None, stop_after=None):
-        self.before_first, self.stop_after = before_first, stop_after
+    def __init__(self, before_first=None, stop_after=None, around=None):
+        self.before_first, self.stop_after, self.around = before_first, stop_after, around
         self.steps, self.adamw, self.metrics = [], [], []
         self.model = self.opt_state = self.train_step = None
 
@@ -2530,7 +2566,11 @@ class train_probe:
                     self.before_first(model)
                 a, b = _event(), _event()
                 a.record()
-                out = step(model, opt_state, batch)
+                if self.around is not None:
+                    with self.around(len(self.steps)):
+                        out = step(model, opt_state, batch)
+                else:
+                    out = step(model, opt_state, batch)
                 b.record()
                 self.steps.append((a, b))
                 self.model, self.opt_state, metrics = out
@@ -2860,6 +2900,480 @@ def train_phase(smi: str, device: str = "cuda", argv=TRAIN_ARGV) -> None:
          card=smi)
 
 
+# -- phase 15: the LM mesh paths ---------------------------------------------------
+LM_MESH_RANKS = 4
+# Llama 3.2 1B at its published width and depth through the launcher on
+# (data=2, model=2): 3 steps of 4 x 512 tokens, remat on, bf16, at a tenth of
+# the launcher's learning rate (3e-4 overshoots on the third step at this batch).
+LM_MESH_ARGV = ("--steps", "3", "--batch", "4", "--seq", "512", "--lr", "3e-5")
+LM_MESH_FP32 = dict(layers=2, batch=4, seq=64, seed=15)
+# Qwen3-MoE 30B-A3B at its published width on (data=1, model=4): 32 experts a
+# rank; depth cut to 8 layers (four ranks' full copies before sharding on one
+# card); 8 teacher-forced decode steps of batch 4.
+LM_MESH_MOE = dict(arch="qwen3_moe_30b_a3b", layers=8, fp32_layers=2, batch=4, steps=8,
+                   seed=15)
+# The fp32 copy at 2 layers: routing equal, logits rtol 1e-4 / atol 1e-5.
+# The bf16 run at 8 layers: the tensor-parallel attention sums bf16 partials
+# over model where one rank accumulates in fp32, so a near-tie in the routing
+# can flip and the logits part from there; its gate is every step before the
+# first call whose chosen experts differ within atol 2e-2, every rank's first
+# difference at the same call, and every difference up to that call a
+# near-tie (``routing_flip``: each swapped pair's logit gap within what one
+# bf16 step of the router input can move it).
+LM_MESH_MOE_TOL = {"bfloat16": dict(rtol=0.0, atol=2e-2), "float32": dict(rtol=1e-4, atol=1e-5)}
+LM_MESH_POD_ELEMS = 1 << 22            # one rank's gradient in the int8 all-reduce (16 MB)
+LM_MESH_DRYRUN = (("llama3_2_1b", "train_4k"), ("qwen3_moe_30b_a3b", "decode_32k"))
+LM_MESH_DIR = Path(__file__).resolve().parent / "build" / "lm_mesh"
+LM_MESH_BACKEND = "gloo"               # NCCL refuses two ranks on one card
+
+
+def _no_tf32():
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+
+def _lm_fp32_batch(cfg) -> dict:
+    o = LM_MESH_FP32
+    chunk = np.random.default_rng(o["seed"]).integers(0, cfg.vocab_size,
+                                                      (o["batch"], o["seq"] + 1))
+    return {"tokens": torch.from_numpy(chunk[:, :-1]), "labels": torch.from_numpy(chunk[:, 1:])}
+
+
+def _lm_fp32_model(device):
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_params
+
+    cfg = get_config(TRAIN_ARCH).with_(num_layers=LM_MESH_FP32["layers"], dtype="float32")
+    gen = torch.Generator(device=device).manual_seed(LM_MESH_FP32["seed"])
+    return init_params(cfg, generator=gen, device=device).requires_grad_(True)
+
+
+def _moe_model(dtype: str, layers: int, device):
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_params
+
+    cfg = get_config(LM_MESH_MOE["arch"]).with_(num_layers=layers, dtype=dtype)
+    gen = torch.Generator(device=device).manual_seed(LM_MESH_MOE["seed"])
+    return init_params(cfg, generator=gen, device=device)
+
+
+def _moe_tokens(cfg) -> torch.Tensor:
+    o = LM_MESH_MOE
+    return torch.from_numpy(np.random.default_rng(o["seed"]).integers(
+        0, cfg.vocab_size, (o["batch"], o["steps"])))
+
+
+def _moe_decode(model, device, mesh=None) -> dict:
+    """LM_MESH_MOE's teacher-forced decode steps: every step's logits,
+    every routing call's ``topk_idx``, ``probs`` and router input on the
+    CPU, each layer's router (fp32), and the ms of each step (CUDA
+    events)."""
+    from repro_torch.distributed.sharding import distribute, shard_cache
+    from repro_torch.distributed.spmd import bspec
+    from repro_torch.models import decode_step, init_cache
+
+    cfg = model.cfg
+    tokens = _moe_tokens(cfg).to(device)
+    cache = init_cache(cfg, tokens.shape[0], tokens.shape[1], device=device)
+    if mesh is not None:
+        cache = shard_cache(cache, cfg, mesh)
+    logits, ms = [], []
+    with routing_log(inputs=True) as log, torch.inference_mode():
+        for t in range(tokens.shape[1]):
+            tok = tokens[:, t]
+            if mesh is not None:
+                tok = distribute(tok, (bspec(mesh, tok.shape[0]),), mesh)
+            a, b = _event(), _event()
+            a.record()
+            out, cache = decode_step(model, cache, tok, mesh=mesh)
+            b.record()
+            out = out.full_tensor() if mesh is not None else out
+            logits.append(out.float().cpu())
+            ms.append(a.elapsed_time(b))
+    routers = [b.moe.router for b in model.blocks]
+    routers = [(r.full_tensor() if mesh is not None else r).float().cpu() for r in routers]
+    return {"logits": torch.stack(logits), "routing": [c[0] for c in log.calls],
+            "probs": [c[1] for c in log.calls], "inputs": log.inputs, "routers": routers,
+            "ms": ms}
+
+
+def routing_flip(run: dict, want: dict) -> dict | None:
+    """``run``'s routing (``_moe_decode``) against ``want``'s, up to the
+    first call whose chosen experts (the top-k sets) differ: ``call``,
+    ``step`` and ``layer`` of that call (None where the sets agree
+    throughout), and ``tokens``, every token row that differs at that call
+    or before it (an order within the top-k changes no output).  For each,
+    at the first position where the rows differ: ``want``'s expert ``i``
+    and ``run``'s ``j``, ``want``'s probability margin there (that
+    position's probability minus the next), the gap ``z_i - z_j`` of
+    ``want``'s router logits, ``one_step``, the most one bf16 step of every
+    router input element can move that gap (sum over d of ``|W[d, i] -
+    W[d, j]|`` times the bf16 spacing at ``x_d``), the shift the two runs'
+    inputs made, and how far apart the inputs are in bf16 steps.
+    ``near_tie``: every gap within its ``one_step``.  None when the routing
+    is equal throughout."""
+    layers = len(want["routers"])
+    tokens, first = [], None
+    for c, (ia, ib) in enumerate(zip(run["routing"], want["routing"])):
+        if torch.equal(ia, ib):
+            continue
+        w = want["routers"][c % layers].double()
+        xa, xb = run["inputs"][c].double(), want["inputs"][c].double()
+        _, exp = torch.frexp(xb.abs())
+        spacing = torch.ldexp(torch.ones_like(xb), exp - 8)   # bf16: 8 significant bits
+        for t in range(ib.shape[0]):
+            if torch.equal(ia[t], ib[t]):
+                continue
+            pos = int((ia[t] != ib[t]).nonzero()[0])
+            i, j = int(ib[t, pos]), int(ia[t, pos])
+            z = xb[t] @ w
+            p = torch.sort(want["probs"][c][t].double(), descending=True).values
+            dw = w[:, i] - w[:, j]
+            tokens.append(dict(
+                call=c, token=t, position=pos, want_expert=i, run_expert=j,
+                prob_margin=float(p[pos] - p[pos + 1]), logit_gap=float(z[i] - z[j]),
+                one_step=float((dw.abs() * spacing[t]).sum()),
+                input_shift=float(dw @ (xb[t] - xa[t])),
+                input_max_steps=float(((xa[t] - xb[t]).abs() / spacing[t]).max())))
+        if not torch.equal(ia.sort(dim=1).values, ib.sort(dim=1).values):
+            first = c
+            break
+    if not tokens:
+        return None
+    return dict(call=first, step=None if first is None else first // layers,
+                layer=None if first is None else first % layers, tokens=tokens,
+                near_tie=all(t["logit_gap"] <= t["one_step"] for t in tokens))
+
+
+def lm_mesh_baselines(smi: str, work: Path) -> dict:
+    """The one-rank runs phase 15's mesh runs are held against, on the card
+    without a mesh: the launcher's bf16 Llama steps (ms a step), the fp32
+    2-layer Llama's loss and gradients, and the Qwen3-MoE decodes."""
+    from repro_torch.train.step import loss_and_grads
+
+    t_part = time.perf_counter()
+    out = {}
+    probe = train_probe()
+    with probe:
+        rc, _, err = launch_train(["--arch", TRAIN_ARCH, "--device", "cuda", *LM_MESH_ARGV])
+    check(rc == 0, f"one-rank launcher exited {rc}: {err[-5:]}")
+    out["train_ms"] = probe.ms(probe.steps)
+    out["train_losses"] = [float(m["loss"]) for m in probe.metrics]
+    del probe
+    _no_tf32()
+    model = _lm_fp32_model("cuda")
+    loss, grads = loss_and_grads(model, {k: v.cuda() for k, v in _lm_fp32_batch(model.cfg).items()})
+    out["fp32_loss"], out["fp32_grads"] = loss.cpu(), {k: g.cpu() for k, g in grads.items()}
+    del model, grads
+    for dtype, layers in (("float32", LM_MESH_MOE["fp32_layers"]), ("bfloat16", LM_MESH_MOE["layers"])):
+        model = _moe_model(dtype, layers, "cuda")
+        out[f"moe_{dtype}"] = _moe_decode(model, "cuda")
+        del model
+        gc.collect()
+        torch.cuda.empty_cache()
+    emit(phase="lm_mesh_one_rank", arch=TRAIN_ARCH, args=list(LM_MESH_ARGV),
+         ms_per_step=out["train_ms"], losses=out["train_losses"],
+         moe_ms_per_step={k: out[f"moe_{k}"]["ms"] for k in ("float32", "bfloat16")},
+         seconds=time.perf_counter() - t_part, card=smi)
+    return out
+
+
+def _rank_save(work: Path, rank: int, name: str, obj) -> None:
+    torch.save(obj, work / f"rank{rank}_{name}.pt")
+
+
+def lm_mesh_rank(rank: int, world: int, port: int, work: str) -> None:
+    """One of phase 15's ranks (a spawned process on the one card), in a
+    gloo group: the fp32 2-layer Llama's loss and gradients on (2, 2), the
+    expert-parallel Qwen3-MoE decodes on (1, 4), the int8 all-reduce on
+    (pod=4) on the card and on the CPU, then the launcher's bf16 Llama on
+    (2, 2), its second step under ``CommDebugMode`` (the launcher ends the
+    group).  Each result goes to ``work`` for the parent to check."""
+    import faulthandler
+
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.distributed.tensor.debug import CommDebugMode
+
+    from repro_torch.distributed.compression import compressed_allreduce_mean
+    from repro_torch.distributed.sharding import (
+        batch_specs, distribute, param_specs, shard_params)
+    from repro_torch.distributed.spmd import all_reduce
+    from repro_torch.launch.dryrun import CollectiveLog
+    from repro_torch.launch.mesh import init_ranks
+    from repro_torch.train.step import loss_and_grads
+
+    faulthandler.enable()
+    work = Path(work)
+    os.environ.update(MASTER_ADDR="localhost", MASTER_PORT=str(port), RANK=str(rank),
+                      WORLD_SIZE=str(world), LOCAL_RANK=str(rank))
+    torch.cuda.set_device(0)
+    init_ranks(LM_MESH_BACKEND, "cuda")
+    _no_tf32()
+    t0 = time.perf_counter()
+    mesh = init_device_mesh("cuda", (2, 2), mesh_dim_names=("data", "model"))
+    model = _lm_fp32_model("cuda")
+    shard_params(model, param_specs(model, model.cfg, mesh), mesh)
+    specs = batch_specs(model.cfg, mesh, LM_MESH_FP32["batch"])
+    batch = {k: distribute(v.cuda(), specs[k], mesh) for k, v in _lm_fp32_batch(model.cfg).items()}
+    loss, grads = loss_and_grads(model, batch, mesh=mesh)
+    full = {k: g.full_tensor().cpu() for k, g in grads.items()}
+    if rank == 0:
+        _rank_save(work, rank, "fp32", {"loss": loss.cpu(), "grads": full})
+    del model, grads, full
+    times = {"fp32_s": time.perf_counter() - t0}
+
+    ep = init_device_mesh("cuda", (1, world), mesh_dim_names=("data", "model"))
+    for dtype, layers in (("float32", LM_MESH_MOE["fp32_layers"]), ("bfloat16", LM_MESH_MOE["layers"])):
+        t0 = time.perf_counter()
+        model = _moe_model(dtype, layers, "cuda")
+        shard_params(model, param_specs(model, model.cfg, ep), ep)
+        gc.collect()
+        torch.cuda.empty_cache()
+        local = sum(p.to_local().numel() * p.element_size() for p in model.parameters())
+        run = _moe_decode(model, "cuda", ep)
+        run["local_weight_bytes"] = local
+        _rank_save(work, rank, f"moe_{dtype}", run)
+        del model
+        gc.collect()
+        torch.cuda.empty_cache()
+        times[f"moe_{dtype}_s"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    pod = init_device_mesh("cuda", (world,), mesh_dim_names=("pod",))
+    cpu_group = dist.new_group(backend="gloo")
+    x = torch.from_numpy(np.random.default_rng(rank).standard_normal(
+        LM_MESH_POD_ELEMS).astype(np.float32))
+    res = {}
+    for where, group in (("cuda", pod.get_group("pod")), ("cpu", cpu_group)):
+        trace = {}
+        xd = x.to(where)
+        mean = compressed_allreduce_mean(xd, group, trace=trace)
+        if where == "cuda":
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            for _ in range(3):
+                compressed_allreduce_mean(xd, group)
+            torch.cuda.synchronize()
+            res["int8_ms"] = (time.perf_counter() - t1) / 3 * 1e3
+            t1 = time.perf_counter()
+            for _ in range(3):
+                all_reduce(xd, "sum", group)
+            torch.cuda.synchronize()
+            res["fp32_allreduce_ms"] = (time.perf_counter() - t1) / 3 * 1e3
+        res[where] = {"mean": mean.cpu(), **{k: v.cpu() for k, v in trace.items()}}
+    _rank_save(work, rank, "pod", res)
+    times["pod_s"] = time.perf_counter() - t0
+
+    comm = {}
+
+    def around(i):
+        import contextlib
+
+        if i != 1:
+            return contextlib.nullcontext()
+        stack = contextlib.ExitStack()
+        comm["mode"] = stack.enter_context(CommDebugMode())
+        comm["log"] = stack.enter_context(CollectiveLog())
+        return stack
+    t0 = time.perf_counter()
+    probe = train_probe(around=around)
+    with probe:
+        rc, out, err = launch_train(["--arch", TRAIN_ARCH, "--device", "cuda",
+                                     "--backend", LM_MESH_BACKEND,
+                                     "--model-parallel", "2", *LM_MESH_ARGV])
+    torch.cuda.synchronize()
+    times["launcher_s"] = time.perf_counter() - t0
+    _rank_save(work, rank, "train", {
+        "rc": rc, "out": out, "err": err[-20:], "ms": probe.ms(probe.steps),
+        "losses": [float(m["loss"]) for m in probe.metrics],
+        "grad_norms": [float(m["grad_norm"]) for m in probe.metrics],
+        "comm_counts": {str(k): int(v) for k, v in comm["mode"].get_comm_counts().items()},
+        "comm_bytes_by_op": dict(comm["log"].bytes_by_op),
+        "comm_count_by_op": dict(comm["log"].count_by_op),
+        "comm_bytes_by_group": {str(k): v for k, v in comm["log"].bytes_by_group.items()},
+        "peak_device_bytes": torch.cuda.max_memory_allocated(),
+        "times": times, "launches": _kernel_launches()})
+
+
+def lm_mesh_dryrun_start(work: Path) -> list:
+    """The dry run of LM_MESH_DRYRUN's cells on both production meshes, one
+    child process each (the fake group is process-wide), started at once."""
+    env = {**os.environ, "PYTHONPATH": str(Path(__file__).resolve().parent / "src")}
+    procs = []
+    for arch, shape in LM_MESH_DRYRUN:
+        log = open(work / f"dryrun_{arch}_{shape}.log", "w")
+        procs.append((arch, shape, log, subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch, "--shape",
+             shape, "--multi-pod", "both", "--out", str(work / "dryrun")],
+            stdout=log, stderr=subprocess.STDOUT, env=env)))
+    return procs
+
+
+def lm_mesh_dryrun_join(procs, work: Path, smi: str) -> None:
+    for arch, shape, log, proc in procs:
+        try:
+            rc = proc.wait(timeout=300)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+            log.close()
+        text = (work / f"dryrun_{arch}_{shape}.log").read_text()
+        check(rc == 0, f"dry run {arch} x {shape} exited {rc}: {text[-2000:]}")
+        for pod in ("pod1", "pod2"):
+            rec = json.loads((work / "dryrun" / f"{arch}_{shape}_{pod}.json").read_text())
+            check(rec["device"].startswith("none") and rec["cost_analysis"]["flops"] > 0
+                  and rec["memory"]["argument_bytes_per_device"] > 0,
+                  f"dry-run record {arch} x {shape} x {pod}: {rec}")
+            emit(phase="lm_mesh_dryrun", record=rec, host=smi)
+
+
+def lm_mesh_phase(smi: str) -> None:
+    """Phase 15: the LM mesh paths (module docstring), no hand-written
+    kernel launched."""
+    t_phase = time.perf_counter()
+    release_pinned_cache()
+    for ops_fn in (ops.stencil2d, ops.stencil3d, ops.chain2d):
+        ops_fn.launches = 0
+    shutil.rmtree(LM_MESH_DIR, ignore_errors=True)
+    LM_MESH_DIR.mkdir(parents=True)
+    tf32 = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+    procs = lm_mesh_dryrun_start(LM_MESH_DIR)
+    try:
+        base = lm_mesh_baselines(smi, LM_MESH_DIR)
+        gc.collect()
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        torch.multiprocessing.spawn(lm_mesh_rank, args=(LM_MESH_RANKS, _free_port(),
+                                                        str(LM_MESH_DIR)),
+                                    nprocs=LM_MESH_RANKS, join=True)
+        spawn_s = time.perf_counter() - t0
+        lm_mesh_check(smi, base, spawn_s)
+        lm_mesh_dryrun_join(procs, LM_MESH_DIR, smi)
+    finally:
+        for *_, log, proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
+        shutil.rmtree(LM_MESH_DIR / "dryrun", ignore_errors=True)
+    launches = _kernel_launches()
+    check(all(v == 0 for v in launches.values()),
+          f"the LM mesh paths launch no hand-written kernel: {launches}")
+    emit(phase="lm_mesh_done", seconds=time.perf_counter() - t_phase, launches=launches,
+         card=smi)
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def lm_mesh_check(smi: str, base: dict, spawn_s: float) -> None:
+    """Phase 15's gates on what the ranks wrote, and its records."""
+    w = LM_MESH_DIR
+    load = lambda r, n: torch.load(w / f"rank{r}_{n}.pt", weights_only=False)  # noqa: E731
+    ranks = range(LM_MESH_RANKS)
+    train = [load(r, "train") for r in ranks]
+    check(all(t["rc"] == 0 for t in train), f"launcher ranks exited {[t['rc'] for t in train]}: "
+          f"{train[0]['err']}")
+    losses = train[0]["losses"]
+    check(all(np.isfinite(losses)) and losses[-1] < losses[0] and
+          all(t["losses"] == losses for t in train),
+          f"four-rank losses finite, falling and equal on every rank: "
+          f"{[t['losses'] for t in train]}")
+    launches = {k: sum(t["launches"][k] for t in train) for k in train[0]["launches"]}
+    check(all(v == 0 for v in launches.values()), f"ranks launched kernels: {launches}")
+    ms4 = statistics.median(train[0]["ms"][1:])
+    ms1 = statistics.median(base["train_ms"][1:])
+    emit(phase="lm_mesh_train", arch=TRAIN_ARCH, mesh="data=2xmodel=2", ranks=LM_MESH_RANKS,
+         backend=LM_MESH_BACKEND, args=list(LM_MESH_ARGV), losses=losses,
+         grad_norms=train[0]["grad_norms"], ms_per_step=[t["ms"] for t in train],
+         ms_per_step_median=ms4, one_rank_ms_per_step=base["train_ms"],
+         one_rank_ms_per_step_median=ms1, one_rank_losses=base["train_losses"],
+         four_over_one=ms4 / ms1, step_collectives=train[0]["comm_counts"],
+         step_collective_count_by_op=train[0]["comm_count_by_op"],
+         step_collective_bytes_by_op=train[0]["comm_bytes_by_op"],
+         step_collective_bytes_by_group_size=train[0]["comm_bytes_by_group"],
+         peak_device_bytes_per_rank=[t["peak_device_bytes"] for t in train],
+         rank_seconds=train[0]["times"], spawn_s=spawn_s, launches=launches, card=smi)
+
+    fp32 = load(0, "fp32")
+    loss_ok = bool(torch.allclose(fp32["loss"], base["fp32_loss"], **TRAIN_TOL["loss"]))
+    err = {k: float((fp32["grads"][k] - g).abs().max()) for k, g in base["fp32_grads"].items()}
+    grads_ok = all(torch.allclose(fp32["grads"][k], g, **TRAIN_TOL["grads"])
+                   for k, g in base["fp32_grads"].items())
+    worst = max(err, key=err.get)
+    emit(phase="lm_mesh_train_parity", arch=TRAIN_ARCH, layers=LM_MESH_FP32["layers"],
+         mesh="data=2xmodel=2", loss_mesh=float(fp32["loss"]), loss_one_rank=float(base["fp32_loss"]),
+         loss_ok=loss_ok, grads_ok=grads_ok, worst_grad=worst, max_abs_grad_diff=err[worst],
+         tolerance=TRAIN_TOL, card=smi)
+    check(loss_ok and grads_ok, f"fp32 four-rank step against one rank: loss "
+          f"{float(fp32['loss'])} / {float(base['fp32_loss'])}, {worst} off by {err[worst]}")
+
+    for dtype in ("float32", "bfloat16"):
+        want = base[f"moe_{dtype}"]
+        runs = [load(r, f"moe_{dtype}") for r in ranks]
+        routing_equal = all(len(r["routing"]) == len(want["routing"]) and all(
+            torch.equal(a, b) for a, b in zip(r["routing"], want["routing"])) for r in runs)
+        # the routing calls equal to one rank's before the first that is not
+        same = [next((i for i, (a, b) in enumerate(zip(r["routing"], want["routing"]))
+                      if not torch.equal(a, b)), len(want["routing"])) for r in runs]
+        diff = float((runs[0]["logits"] - want["logits"]).abs().max())
+        step_diff = [float(d) for d in (runs[0]["logits"] - want["logits"]).abs().amax(dim=(1, 2))]
+        ok = routing_equal and torch.allclose(runs[0]["logits"], want["logits"],
+                                              **LM_MESH_MOE_TOL[dtype])
+        # bf16: the steps before the first call whose chosen experts differ
+        # within tolerance, and every routing difference up to it a near-tie
+        flip = routing_flip(runs[0], want)
+        before = len(step_diff) if flip is None or flip["step"] is None else flip["step"]
+        pre_ok = torch.allclose(runs[0]["logits"][:before], want["logits"][:before],
+                                **LM_MESH_MOE_TOL[dtype])
+        bf16_ok = pre_ok and (flip is None or flip["near_tie"]) and len(set(same)) == 1
+        emit(phase="lm_mesh_moe_ep", arch=LM_MESH_MOE["arch"], dtype=dtype,
+             layers=LM_MESH_MOE["layers"] if dtype == "bfloat16" else LM_MESH_MOE["fp32_layers"],
+             mesh=f"data=1xmodel={LM_MESH_RANKS}", steps=LM_MESH_MOE["steps"],
+             batch=LM_MESH_MOE["batch"], routing_calls=len(want["routing"]),
+             routing_equal=routing_equal, routing_calls_equal_before_first_diff=same,
+             max_abs_logit_diff=diff, max_abs_logit_diff_by_step=step_diff,
+             first_flip=flip, steps_before_first_flip=before,
+             steps_before_first_flip_within_tolerance=bool(pre_ok),
+             max_abs_logit=float(want["logits"].abs().max()), tolerance=LM_MESH_MOE_TOL[dtype],
+             within_tolerance=ok, ms_per_step_ep=runs[0]["ms"], ms_per_step_one_rank=want["ms"],
+             local_weight_bytes_per_rank=[r["local_weight_bytes"] for r in runs], card=smi)
+        if dtype == "float32":
+            check(ok, f"expert-parallel fp32 decode against one rank: routing equal "
+                  f"{routing_equal}, logits off by {diff}")
+        else:
+            check(bf16_ok, f"expert-parallel bf16 decode against one rank: every rank's "
+                  f"first routing difference at call {same}, {before} steps before it within "
+                  f"tolerance {bool(pre_ok)}, the difference a near-tie: {flip}")
+        check(all(bool(torch.isfinite(r["logits"]).all()) and r["logits"].shape
+                  == want["logits"].shape for r in runs),
+              f"expert-parallel {dtype} logits finite, of their shape")
+
+    pods = [load(r, "pod") for r in ranks]
+    q_equal = all(torch.equal(p["cuda"]["q"], p["cpu"]["q"])
+                  and torch.equal(p["cuda"]["scales"], p["cpu"]["scales"]) for p in pods)
+    step = max(float(p["cpu"]["scales2"].max()) for p in pods) / LM_MESH_RANKS
+    mean_diff = max(float((p["cuda"]["mean"] - p["cpu"]["mean"]).abs().max()) for p in pods)
+    q2_diff = max(int((p["cuda"]["q2"].int() - p["cpu"]["q2"].int()).abs().max()) for p in pods)
+    emit(phase="lm_mesh_pod_allreduce", mesh=f"pod={LM_MESH_RANKS}", elems=LM_MESH_POD_ELEMS,
+         phase1_payloads_equal=q_equal, phase2_max_q_diff=q2_diff, max_abs_mean_diff=mean_diff,
+         quant_step=step, int8_ms=[p["int8_ms"] for p in pods],
+         fp32_allreduce_ms=[p["fp32_allreduce_ms"] for p in pods],
+         wire_bytes_int8_per_rank=2 * LM_MESH_POD_ELEMS + 8 * LM_MESH_RANKS,
+         wire_bytes_fp32_per_rank=4 * LM_MESH_POD_ELEMS, card=smi)
+    # one phase-2 step where the card's fp32 sum and the CPU's round to
+    # neighbouring int8 values, and the rounding of the step itself
+    check(q_equal and q2_diff <= 1 and mean_diff <= step * (1 + 1e-5),
+          f"int8 pod all-reduce on the card against the CPU: phase 1 equal {q_equal}, "
+          f"phase 2 off by {q2_diff}, mean off by {mean_diff} (step {step})")
+
+
 def device_activity(prof, top: int = 12):
     """Of a ``torch.profiler`` run: the seconds the card was busy (the union
     of its kernels' and copies' intervals), the seconds of work they did
@@ -2942,6 +3456,8 @@ def main() -> int:
                     help="only phase 13, ssm, hybrid and encdec decode (no result line)")
     ap.add_argument("--train", action="store_true",
                     help="only phase 14, training (no result line)")
+    ap.add_argument("--lm-mesh", action="store_true",
+                    help="only phase 15, the LM mesh paths (no result line)")
     ap.add_argument("--chunked", metavar="DIR",
                     help="only phase 8's chunked run, held against DIR/want.json "
                          "(the whole run starts this in a child process)")
@@ -2982,6 +3498,9 @@ def main() -> int:
     if args.train:
         train_phase(smi)
         return 0
+    if args.lm_mesh:
+        lm_mesh_phase(smi)
+        return 0
     build_phase()
     path = kernels_phase(n2d, n3d, reps)
     launches = kernel_path_phase(n2d, n3d)
@@ -3011,6 +3530,7 @@ def main() -> int:
     moe_phase(smi)
     ssm_phase(smi)
     train_phase(smi)
+    lm_mesh_phase(smi)
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": SOURCES[name][0],
          "replaces": SOURCES[name][1], "launches": launches[name],

@@ -13,19 +13,37 @@ device:
   * SIGTERM (preemption notice): checkpoint at once, exit 0.
 
 ``--device`` is new (``cuda`` by default, which raises where there is no
-card).  Two exits with code 2 where the reference differs: a
-``--model-parallel`` other than 1 (meshes are ROADMAP A14(e)), and an encdec
-arch, whose audio frontend is stubbed in both packages so no encoder inputs
-exist (the reference's launcher ends in an ``AttributeError`` there).  Like
-the reference's, it passes no vision patches: a vlm trains as its LM.
+card).  Exits with code 2 where the reference differs: a ``--model-parallel``
+below 1, and an encdec arch,
+whose audio frontend is stubbed in both packages so no encoder inputs exist
+(the reference's launcher ends in an ``AttributeError`` there).  Like the
+reference's, it passes no vision patches: a vlm trains as its LM.
+
+Meshes: under ``torchrun --nproc-per-node W``, or with ``--model-parallel
+N`` other than 1, the ranks join one process group on ``--backend``
+(``nccl`` on cuda, ``gloo`` on cpu unless given; printed), build
+``launch/mesh.py::make_host_mesh(N)``, i.e. (data=W // N, model=N), shard
+the parameters (``distributed.sharding``: FSDP over data, tensor and
+expert parallel over model) and train on DTensors; each rank holds the
+same seeded weights and reads the same token stream, and keeps its
+shards.  Rank 0 prints and writes the checkpoints, which are gathered
+whole, so a run restores onto any mesh.  With neither, no process group is
+made and the step is the single-device one.  Ranks on one card share it
+(``cuda:LOCAL_RANK`` modulo the card count); NCCL refuses that, so give
+``--backend gloo``, for which ``launch/mesh.py::init_ranks`` routes the
+functional all-gather of CUDA tensors through the c10d call (PyTorch
+2.11's crashes on them) and says so on stderr.
 
 Usage (reduced config, CPU):
   PYTHONPATH=src python -m repro_torch.launch.train --arch llama3_2_1b \\
       --reduced --device cpu --steps 20 --ckpt-dir /tmp/ckpt --ckpt-every 5
+  torchrun --nproc-per-node 4 -m repro_torch.launch.train --arch llama3_2_1b \\
+      --reduced --device cpu --model-parallel 2 --steps 4
 """
 from __future__ import annotations
 
 import argparse
+import os
 import signal
 import sys
 import time
@@ -61,6 +79,9 @@ def main(argv=None) -> int:
     ap.add_argument("--sleep-per-step", type=float, default=0.0)  # test hook
     ap.add_argument("--device", default="cuda",
                     help="where the model trains: cuda (default) or cpu")
+    ap.add_argument("--backend", default=None,
+                    help="process-group backend of a mesh run: nccl, gloo (default: "
+                         "nccl on cuda, gloo on cpu)")
     ap.add_argument("--quiet", action="store_true")
     args = ap.parse_args(argv)
 
@@ -69,6 +90,9 @@ def main(argv=None) -> int:
 
     from repro_torch.configs import get_config, get_reduced_config
     from repro_torch.core.device import resolve_device
+    from repro_torch.distributed.sharding import (
+        batch_specs, distribute, mesh_axes, param_specs, shard_params)
+    from repro_torch.launch.mesh import init_ranks, make_host_mesh
     from repro_torch.models import init_params
     from repro_torch.models.weights import load_tree
     from repro_torch.train import AdamWConfig, adamw_init, make_train_step
@@ -82,20 +106,38 @@ def main(argv=None) -> int:
     except KeyError as e:
         print(f"repro_torch.launch.train: {e}", file=sys.stderr)
         return 2
-    if args.model_parallel != 1:
-        print(f"--model-parallel {args.model_parallel}: meshes are not ported yet "
-              f"(ROADMAP A14(e))", file=sys.stderr)
+    if args.model_parallel < 1:
+        print(f"--model-parallel {args.model_parallel}: the model axis needs at least one "
+              f"rank", file=sys.stderr)
         return 2
     if cfg.encdec:
         print(f"{cfg.name}: encdec trains on encoder inputs from its audio frontend, "
               f"which is stubbed; this launcher has none to give it", file=sys.stderr)
         return 2
     dev = resolve_device(args.device)
+    mesh, rank = None, 0
+    sharded = args.model_parallel != 1 or "WORLD_SIZE" in os.environ
+    if sharded:
+        backend = args.backend or ("nccl" if dev.type == "cuda" else "gloo")
+        world = init_ranks(backend, dev.type)
+        rank = torch.distributed.get_rank()
+        if dev.type == "cuda":
+            dev = torch.device("cuda", int(os.environ.get("LOCAL_RANK", rank))
+                               % torch.cuda.device_count())
+            torch.cuda.set_device(dev)
+        mesh = make_host_mesh(args.model_parallel, device_type=dev.type)
+        if rank == 0 and not args.quiet:
+            print(f"mesh {dict(mesh_axes(mesh))} over {world} ranks, backend {backend}, "
+                  f"device {dev.type}", flush=True)
+    args.quiet = args.quiet or rank != 0
     opt_cfg = AdamWConfig(peak_lr=args.lr, warmup_steps=max(2, args.steps // 10),
                           total_steps=args.steps)
 
     model = init_params(cfg, generator=torch.Generator(device=dev).manual_seed(args.seed),
                         device=dev)
+    if mesh is not None:
+        shard_params(model, param_specs(model, cfg, mesh), mesh)
+        bspecs = batch_specs(cfg, mesh, args.batch)
     opt_state = adamw_init(dict(model.named_parameters()))
     start_step = 0
 
@@ -112,7 +154,7 @@ def main(argv=None) -> int:
             if not args.quiet:
                 print(f"resumed from step {newest}", flush=True)
 
-    train_step = make_train_step(cfg, opt_cfg, microbatches=args.microbatches)
+    train_step = make_train_step(cfg, opt_cfg, mesh, microbatches=args.microbatches)
     data = TokenStream(DataConfig(cfg.vocab_size, args.seq, args.batch,
                                   seed=args.seed))
     it = PrefetchIterator(data, start_step=start_step)
@@ -134,6 +176,8 @@ def main(argv=None) -> int:
             if step >= args.steps:
                 break
             tb = {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
+            if mesh is not None:
+                tb = {k: distribute(v, bspecs[k], mesh) for k, v in tb.items()}
             model, opt_state, metrics = train_step(model, opt_state, tb)
             loss = float(metrics["loss"])
             dt = time.perf_counter() - t0
@@ -153,8 +197,9 @@ def main(argv=None) -> int:
             step += 1
             if args.ckpt_dir and (step % args.ckpt_every == 0 or step == args.steps
                                   or stop["now"]):
-                save_checkpoint(args.ckpt_dir, step, state_tree(model, opt_state),
-                                keep=args.keep)
+                tree = state_tree(model, opt_state)     # every rank gathers
+                if rank == 0:
+                    save_checkpoint(args.ckpt_dir, step, tree, keep=args.keep)
             if stop["now"]:
                 if not args.quiet:
                     print("SIGTERM: checkpointed, exiting", flush=True)
@@ -162,6 +207,9 @@ def main(argv=None) -> int:
     finally:
         it.close()
         signal.signal(signal.SIGTERM, previous)
+    if sharded:
+        torch.distributed.barrier()
+        torch.distributed.destroy_process_group()
     if not args.quiet:
         print(f"done at step {step}; stragglers flagged: {stragglers}", flush=True)
     return 0

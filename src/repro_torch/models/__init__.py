@@ -5,7 +5,8 @@ transformer), the weights carried across from its parameter trees, and
 layer-weight streaming for serving the dense and vlm families
 (``offload.StreamedDecoder``), and the training loss (``loss_fn``, with
 ``forward(remat=True)``; the optimizer and the step are in
-``repro_torch.train``).  Sharding is a later slice (ROADMAP A14(e))."""
+``repro_torch.train``).  ``forward``, ``loss_fn`` and ``decode_step`` also
+run on a mesh (``mesh=``; the rules in ``repro_torch.distributed``)."""
 from .config import ModelConfig
 from .transformer import (
     CacheFullError,

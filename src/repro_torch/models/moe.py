@@ -18,15 +18,19 @@ Three things are the port's own:
   the tokens' gather into the (E, C, d) stack is ``F.embedding``, whose
   backward adds a token's rows in a fixed order too (indexing's accumulates
   in thread order on the CPU);
-* expert parallelism (``axis``/``axis_size > 1``, the reference's
-  ``all_to_all`` path) is not ported yet (ROADMAP A14(e)).
+* with expert parallelism (``axis``, the ``model`` process group, and
+  ``axis_size`` > 1; the reference's ``all_to_all`` path) the exchanges are
+  ``all_to_all_single_autograd`` of the functional collectives, so the
+  path trains as well as it serves.
 """
 from __future__ import annotations
 
-from typing import NamedTuple, Optional, Tuple
+from typing import NamedTuple, Tuple
 
 import torch
 import torch.nn.functional as F
+
+from ..distributed.spmd import all_to_all
 
 
 def router_probs(x: torch.Tensor, w_router: torch.Tensor) -> torch.Tensor:
@@ -110,25 +114,35 @@ def _combine(updates: torch.Tensor, r: Routing, T: int, k: int) -> torch.Tensor:
     return out
 
 
-def moe_ffn(moe, x: torch.Tensor, cfg, *, axis: Optional[str] = None,
-            axis_size: int = 1) -> torch.Tensor:
-    """Top-k routed expert FFN of ``x`` (B, S, d).  ``moe`` holds ``router``
-    (d, E), ``experts`` with ``w_gate``/``w_up`` (E, d, f) and ``w_down``
-    (E, f, d), and ``shared`` (``w_gate``/``w_up``/``w_down``) when the
-    config has shared experts."""
-    if axis is not None and axis_size > 1:
-        raise NotImplementedError(
-            "moe_ffn: expert parallelism over a mesh axis is not ported yet "
-            "(ROADMAP A14(e))")
+def moe_ffn(moe, x: torch.Tensor, cfg, *, axis=None, axis_size: int = 1) -> torch.Tensor:
+    """Top-k routed expert FFN of ``x`` (B, S, d), the tokens of this rank.
+    ``moe`` holds ``router`` (d, E), ``experts`` with ``w_gate``/``w_up``
+    (E_local, d, f) and ``w_down`` (E_local, f, d), and ``shared``
+    (``w_gate``/``w_up``/``w_down``) when the config has shared experts.
+    With ``axis`` (a process group of ``axis_size`` > 1 ranks) the experts
+    are split over its ranks, E_local = E / axis_size on each, and the
+    (E, C, d) buckets go to the experts' ranks and back by two all_to_alls
+    (the standard EP schedule); C comes from this rank's token count."""
     B, S, d = x.shape
     tokens = x.reshape(-1, d)
     T = tokens.shape[0]
     r = route(moe.router, tokens, cfg)
     # the gather as F.embedding: its backward is deterministic (see _combine)
     xe = F.embedding(r.tok_idx, tokens) * r.valid[..., None].to(tokens.dtype)  # (E, C, d)
+    E, C = xe.shape[0], xe.shape[1]
+    ep = axis is not None and axis_size > 1
+    if ep:
+        M = axis_size
+        # (E, C, d) -> (M, ep, C, d) -> exchange shard <-> expert group; then
+        # dim 0 is the source rank, merged into the capacity.
+        xe = all_to_all(xe.reshape(M, E // M, C, d), axis)
+        xe = xe.transpose(0, 1).reshape(E // M, M * C, d)
     ex = moe.experts
     h = F.silu(torch.bmm(xe, ex.w_gate)) * torch.bmm(xe, ex.w_up)
     ye = torch.bmm(h, ex.w_down)                                       # (E, C, d)
+    if ep:
+        ye = all_to_all(ye.reshape(E // M, M, C, d).transpose(0, 1), axis)
+        ye = ye.reshape(E, C, d)
     out = _combine(ye * r.gate_w[..., None].to(ye.dtype), r, T, cfg.experts_per_token)
     if cfg.num_shared_experts:
         ws = moe.shared

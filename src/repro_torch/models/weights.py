@@ -17,6 +17,11 @@ The optimizer's state crosses in the same layout: ``tensor_tree(model,
 values=mu)`` and ``load_tree(model, tree, values=mu)`` carry a tensor per
 parameter name (AdamW's ``mu``/``nu``) to and from the reference's stacked
 tree, as ``train/checkpoint.py`` writes it.
+
+DTensor parameters (a mesh's) come out of ``tensor_tree`` whole
+(``full_tensor``: every rank must call it) and go into ``load_tree`` as
+each rank's shard of the full leaf, so a tree saved on one mesh loads onto
+any other, or onto none.
 """
 from __future__ import annotations
 
@@ -26,6 +31,7 @@ import numpy as np
 import torch
 
 from ..core.device import DeviceSpec
+from ..distributed.sharding import local_shard
 from .config import ModelConfig
 from .transformer import Transformer
 
@@ -98,7 +104,10 @@ def load_tree(model: Transformer, tree: Dict[str, Any],
         if tuple(t.shape) != tuple(target.shape):
             raise ValueError(f"{name}: tree leaf of shape {tuple(t.shape)}, "
                              f"the model wants {tuple(target.shape)}")
-        target.copy_(t)
+        if hasattr(target, "placements"):           # a DTensor: this rank's shard
+            target.to_local().copy_(local_shard(t.to(target.device), target))
+        else:
+            target.copy_(t)
     extra = set(_leaf_paths(tree)) - seen
     if extra:
         raise ValueError(f"tree leaves the model does not have: {sorted(extra)}")
@@ -142,7 +151,10 @@ def tensor_tree(model: Transformer,
     tree: Dict[str, Any] = {}
     stacked: Dict[tuple, Dict[int, torch.Tensor]] = {}
     for name, p, path, layer in _slices(model):
-        t = (p if values is None else values[name]).detach().to("cpu", copy=True)
+        t = (p if values is None else values[name]).detach()
+        if hasattr(t, "full_tensor"):               # a DTensor: gathered whole
+            t = t.full_tensor()
+        t = t.to("cpu", copy=True)
         if layer is None:
             _put(tree, path, t)
         else:

@@ -10,7 +10,9 @@ process never leaves a half-valid checkpoint.  Trees are nested dicts whose
 leaves are torch tensors (any device), numpy arrays or Python scalars; the
 launcher builds them in the reference's stacked layout
 (``models/weights.py::tensor_tree``), so either package restores the
-other's checkpoints.
+other's checkpoints.  A DTensor leaf is saved whole (``full_tensor``, a
+collective every rank of its mesh joins), so a run saved on one mesh
+restores onto another: the reference's "restore to any mesh".
 
 One difference on purpose (ROADMAP fault C6): the reference writes a
 bfloat16 leaf as ``np.asarray`` of it, which ``np.savez`` stores as raw
@@ -48,7 +50,10 @@ def _host(leaf: Any) -> Tuple[np.ndarray, str]:
     """A host copy of ``leaf`` as numpy (bfloat16 widened to float32) and
     the dtype name the manifest records."""
     if isinstance(leaf, torch.Tensor):
-        t = leaf.detach().to("cpu", copy=True)
+        t = leaf.detach()
+        if hasattr(t, "full_tensor"):               # a DTensor: gathered whole
+            t = t.full_tensor()
+        t = t.to("cpu", copy=True)
         if t.dtype == torch.bfloat16:
             return t.float().numpy(), "bfloat16"
         arr = t.numpy()

@@ -13,6 +13,12 @@ One difference on purpose (ROADMAP fault C7): the reference decays
 ``ln2``, Mamba's ``ln``, ``norm``, ``conv_b``, ``a_log``, ``d_skip``,
 ``dt_bias``) is decayed while the unstacked ``final_norm`` is not.  Here each
 parameter is one layer's, so ``p.ndim >= 2`` means what the comment says.
+
+DTensor parameters (a mesh's, ``distributed.sharding.shard_params``) keep
+DTensor moments in their placements; the global norm is the DTensors' own
+(summed over the shards), and the update runs on each rank's local shards,
+elementwise as on one device.  A DTensor's ``ndim`` is its global rank, the
+rank of one layer's tensor, so C7's rule holds there too.
 """
 from __future__ import annotations
 
@@ -54,7 +60,8 @@ def cosine_schedule(cfg: AdamWConfig) -> Callable[[torch.Tensor], torch.Tensor]:
 def adamw_init(params: Mapping[str, torch.Tensor]) -> Dict[str, object]:
     """``mu`` and ``nu`` (fp32 zeros beside each parameter, keyed by its
     name) and ``step``, an int32 0-d tensor on the parameters' device."""
-    zeros = {k: torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+    zeros = {k: torch.zeros_like(p, dtype=torch.float32) if hasattr(p, "placements")
+             else torch.zeros(p.shape, dtype=torch.float32, device=p.device)
              for k, p in params.items()}
     device = next(iter(params.values())).device
     return {"mu": zeros, "nu": {k: torch.zeros_like(z) for k, z in zeros.items()},
@@ -62,8 +69,14 @@ def adamw_init(params: Mapping[str, torch.Tensor]) -> Dict[str, object]:
 
 
 def global_norm(tensors) -> torch.Tensor:
-    """The fp32 L2 norm of all ``tensors`` together."""
-    return torch.sqrt(sum(torch.sum(torch.square(t.float())) for t in tensors))
+    """The fp32 L2 norm of all ``tensors`` together (a plain 0-d tensor,
+    also of DTensors)."""
+    norm = torch.sqrt(sum(torch.sum(torch.square(t.float())) for t in tensors))
+    return norm.full_tensor() if hasattr(norm, "full_tensor") else norm
+
+
+def _local(t: torch.Tensor) -> torch.Tensor:
+    return t.to_local() if hasattr(t, "to_local") else t
 
 
 @torch.no_grad()
@@ -80,9 +93,10 @@ def adamw_update(params: Mapping[str, torch.Tensor], grads: Mapping[str, torch.T
     b1, b2 = cfg.b1, cfg.b2
     bc1 = 1 - b1 ** step.to(torch.float32)
     bc2 = 1 - b2 ** step.to(torch.float32)
-    for k, p in params.items():
-        g = grads[k].float() * scale
-        mu, nu = state["mu"][k], state["nu"][k]
+    for k, p_full in params.items():
+        p = _local(p_full)
+        g = _local(grads[k]).float() * scale
+        mu, nu = _local(state["mu"][k]), _local(state["nu"][k])
         mu.copy_(b1 * mu + (1 - b1) * g)
         nu.copy_(b2 * nu + (1 - b2) * g * g)
         delta = (mu / bc1) / (torch.sqrt(nu / bc2) + cfg.eps)

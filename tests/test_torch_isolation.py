@@ -1,6 +1,7 @@
-"""The port stands alone: ``repro_torch`` (its apps and its trainer included)
-and ``chip_smoke.py`` import neither JAX nor the JAX package, and its entry
-points refuse to fall back to the CPU."""
+"""The port stands alone: ``repro_torch`` (its apps, its trainer and its
+mesh paths included) and ``chip_smoke.py`` import neither JAX nor the JAX
+package, the package no ``torch.testing._internal``, and its entry points
+refuse to fall back to the CPU."""
 import ast
 import os
 import subprocess
@@ -27,6 +28,9 @@ import repro_torch.models.offload, repro_torch.models.weights, repro_torch.model
 import repro_torch.models.ssm
 import repro_torch.train, repro_torch.train.checkpoint, repro_torch.train.data
 import repro_torch.launch.train
+import repro_torch.distributed.sharding, repro_torch.distributed.spmd
+import repro_torch.distributed.compression
+import repro_torch.launch.mesh, repro_torch.launch.specs, repro_torch.launch.dryrun
 import chip_smoke
 from repro_torch.core import Session
 s = Session("ooc", device="cpu", num_tiles=2, capacity_bytes=float("inf"))
@@ -68,6 +72,17 @@ def _imported_roots(path: Path):
 def test_no_jax_or_repro_import(path):
     roots = set(_imported_roots(path))
     assert not roots & {"jax", "jaxlib", "repro"}, roots
+
+
+@pytest.mark.parametrize("path", sorted(PORT.rglob("*.py")),
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_torch_testing_internals_in_the_package(path):
+    """The package never imports ``torch.testing._internal`` (its fake and
+    threaded process groups are for tests and ``chip_smoke.py``)."""
+    tree = ast.parse(path.read_text(), filename=str(path))
+    names = [a.name for n in ast.walk(tree) if isinstance(n, ast.Import) for a in n.names]
+    names += [n.module for n in ast.walk(tree) if isinstance(n, ast.ImportFrom) and n.module]
+    assert not [m for m in names if m.startswith("torch.testing._internal")]
 
 
 def test_default_device_never_falls_back_to_cpu():

@@ -226,9 +226,16 @@ def test_router_probs_and_load_balance_loss_match_the_reference():
 
 
 def test_expert_parallelism_names_its_roadmap_item():
+    """Expert parallelism is ported (ROADMAP A14(e), held against the JAX
+    package on CPU ranks by tests/test_torch_mesh.py): an axis of size 1
+    runs the local path, and an axis that names no process group raises."""
     cfg = _moe_cfg(True, 0)
     tmoe = _port_moe(_moe_weights(cfg, seed=1), cfg)
-    with pytest.raises(NotImplementedError, match=r"ROADMAP A14\(e\)"):
+    x = torch.from_numpy(np.random.default_rng(3).standard_normal((1, 4, cfg.d_model))
+                         .astype(np.float32))
+    assert torch.equal(TMOE.moe_ffn(tmoe, x, cfg, axis="model", axis_size=1),
+                       TMOE.moe_ffn(tmoe, x, cfg))
+    with pytest.raises(RuntimeError, match="model"):
         TMOE.moe_ffn(tmoe, torch.zeros(1, 4, cfg.d_model), cfg, axis="model", axis_size=2)
 
 
