@@ -15,6 +15,8 @@
     python3 chip_smoke.py --ssm      # only phase 13, ssm, hybrid and encdec decode
     python3 chip_smoke.py --train    # only phase 14, training
     python3 chip_smoke.py --lm-mesh  # only phase 15, the LM mesh paths
+    python3 chip_smoke.py --analysis # only phase 16, the step analysis (with
+                                     # its own dry run of phase 15's cells)
 
 Phases, each of which asserts (any failure exits non-zero):
 
@@ -231,9 +233,31 @@ Phases, each of which asserts (any failure exits non-zero):
    ``train_4k`` and Qwen3-MoE x ``decode_32k`` on the 256- and 512-rank
    production meshes (host only, fake tensors), each record printed.  No
    hand-written kernel launches (counted in the parent and on every rank).
+   The dry-run records stay for phase 16.
+
+16. step analysis — ``repro_torch.analysis`` and ``core/cachesim.py`` on
+   the card: (a) the card's own constants beside the data sheet's
+   (CUDA-event medians of 10: a 4 GiB device-to-device ``copy_``, an
+   8192^3 ``torch.matmul`` in bf16 and in fp32 with TF32 off, pinned 1 GiB
+   H2D and D2H copies); (b) ``OpCostLog`` over one training step of Llama
+   3.2 1B at its published config (phase 14's 2 x 4,096 tokens in two
+   microbatches, remat on) and one decode step (phase 11's batch 4 after
+   32 prompt tokens), each from the same state as a step without it
+   (results ``torch.equal``), printed with ``roofline_terms`` on the data
+   sheet's constants and on (a)'s and the step's ms timed without the
+   mode; gates: dot FLOPs equal to ``FlopCounterMode``'s and to the same
+   count under ``FakeTensorMode`` on the host, the training step's at least
+   6·N·T, the decode step's HBM bytes at least the weights'; (c) the
+   roofline table (``analyze_report_dir``) of phase 15's dry-run records,
+   every row with HBM bytes and a finite bound, then the records deleted;
+   (d) ``simulate_chain`` on phase 7's CloverLeaf 2D timestep chain at
+   8192^2 at phase 7's capacity and tile count, every mode untiled and
+   tiled on the port's default ``hw`` (``flat_fast`` must raise
+   MemoryError at 3x), its modelled seconds labelled a model of that
+   ``hw``, not card times.  No hand-written kernel launches.
 
 Every line but the last two is a JSON record.  The line before the last
-JSON ``ok`` line lists every ported kernel (phases 7 to 15 launch none of
+JSON ``ok`` line lists every ported kernel (phases 7 to 16 launch none of
 them: the apps' loops and the models' layers are torch ops); the card's ``nvidia-smi`` name and power
 limit are printed on their own line before it.  The script
 imports nothing of JAX or of the JAX package.
@@ -267,11 +291,12 @@ from repro_torch.core import Block  # noqa: E402
 from repro_torch.kernels import build, ops, ref  # noqa: E402
 from repro_torch.kernels import star2d_kernel, star3d_kernel  # noqa: E402
 from repro_torch.obs import compare as drift_compare  # noqa: E402
+from repro_torch.analysis.roofline import FP32_PEAK, H100_SXM  # noqa: E402
 
 # Published H100 SXM peaks at 700 W (NVIDIA data sheet): HBM bandwidth and
 # float32 arithmetic outside the tensor cores.  The sweeps accumulate in fp32.
-PEAK_BYTES_S = 3.35e12
-PEAK_FP32_S = 67e12
+PEAK_BYTES_S = H100_SXM.hbm_bw
+PEAK_FP32_S = FP32_PEAK
 FLOPS_PER_POINT = {"stencil2d": 7, "stencil3d": 10}
 C2 = (0.5, 0.125, 0.125)
 C3 = (0.4, 0.1, 0.1, 0.1)
@@ -2520,7 +2545,7 @@ TRAIN_FAMILIES = ("qwen3_moe_30b_a3b", "deepseek_v2_lite_16b", "mamba2_1_3b",
 TRAIN_CKPT = Path(__file__).resolve().parent / "build" / "train_ckpt"
 TRAIN_SEED = 14
 # NVIDIA's H100 SXM data sheet: dense bf16 on the tensor cores, at 700 W.
-PEAK_BF16_S = 989e12
+PEAK_BF16_S = H100_SXM.peak_flops
 TRAIN_TOL = {"loss": dict(rtol=1e-4, atol=0.0), "grads": dict(rtol=1e-3, atol=1e-5),
              "adamw": dict(rtol=0.0, atol=1e-6)}
 
@@ -3099,7 +3124,7 @@ def lm_mesh_rank(rank: int, world: int, port: int, work: str) -> None:
     from repro_torch.distributed.sharding import (
         batch_specs, distribute, param_specs, shard_params)
     from repro_torch.distributed.spmd import all_reduce
-    from repro_torch.launch.dryrun import CollectiveLog
+    from repro_torch.analysis.op_analysis import CollectiveLog
     from repro_torch.launch.mesh import init_ranks
     from repro_torch.train.step import loss_and_grads
 
@@ -3228,9 +3253,11 @@ def lm_mesh_dryrun_join(procs, work: Path, smi: str) -> None:
             emit(phase="lm_mesh_dryrun", record=rec, host=smi)
 
 
-def lm_mesh_phase(smi: str) -> None:
+def lm_mesh_phase(smi: str, keep_dryrun: bool = False) -> None:
     """Phase 15: the LM mesh paths (module docstring), no hand-written
-    kernel launched."""
+    kernel launched.  With ``keep_dryrun`` the dry-run records of a phase
+    that passed stay in ``LM_MESH_DIR / "dryrun"`` for phase 16, which
+    deletes them."""
     t_phase = time.perf_counter()
     release_pinned_cache()
     for ops_fn in (ops.stencil2d, ops.stencil3d, ops.chain2d):
@@ -3239,6 +3266,7 @@ def lm_mesh_phase(smi: str) -> None:
     LM_MESH_DIR.mkdir(parents=True)
     tf32 = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
     procs = lm_mesh_dryrun_start(LM_MESH_DIR)
+    passed = False
     try:
         base = lm_mesh_baselines(smi, LM_MESH_DIR)
         gc.collect()
@@ -3250,13 +3278,15 @@ def lm_mesh_phase(smi: str) -> None:
         spawn_s = time.perf_counter() - t0
         lm_mesh_check(smi, base, spawn_s)
         lm_mesh_dryrun_join(procs, LM_MESH_DIR, smi)
+        passed = True
     finally:
         for *_, log, proc in procs:
             if proc.poll() is None:
                 proc.kill()
                 proc.wait()
         torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
-        shutil.rmtree(LM_MESH_DIR / "dryrun", ignore_errors=True)
+        if not (keep_dryrun and passed):
+            shutil.rmtree(LM_MESH_DIR / "dryrun", ignore_errors=True)
     launches = _kernel_launches()
     check(all(v == 0 for v in launches.values()),
           f"the LM mesh paths launch no hand-written kernel: {launches}")
@@ -3374,6 +3404,394 @@ def lm_mesh_check(smi: str, base: dict, spawn_s: float) -> None:
           f"phase 2 off by {q2_diff}, mean off by {mean_diff} (step {step})")
 
 
+# -- phase 16: step analysis -------------------------------------------------------
+ANALYSIS_REPS = 10
+ANALYSIS_COPY_ELEMS = 1 << 30          # a 4 GiB fp32 device-to-device copy_
+ANALYSIS_MATMUL = 8192                 # n^3 torch.matmul in bf16 and in fp32
+ANALYSIS_LINK_BYTES = 1 << 30          # pinned H2D and D2H copies
+# Llama 3.2 1B's parameters (phase 14's count), the N of 6·N·T.
+ANALYSIS_PARAMS = 1_235_814_400
+# Phase 14's step: 2 microbatches of one 4,096-token sequence, remat on.
+ANALYSIS_TRAIN = dict(seq=4096, batch=2, microbatches=2)
+# Phase 11's decode step: batch 4 after 32 teacher-forced prompt tokens.
+ANALYSIS_DECODE = dict(batch=4, prompt_len=32)
+ANALYSIS_SEED = 16
+
+
+def card_constants(smi: str):
+    """(a) The card's own constants beside the data sheet's, CUDA-event
+    medians of ANALYSIS_REPS: HBM bytes/s of a device-to-device ``copy_``
+    (read and write counted), the FLOP/s of ``torch.matmul`` in bf16 and in
+    fp32 (TF32 off; the card measured, not the port), and pinned H2D and D2H
+    bytes/s.  Returns the measured ``Hardware`` (the collective links stay
+    the data sheet's: one card measures none)."""
+    from repro_torch.analysis.roofline import PCIE_BW, Hardware
+
+    src = torch.empty(ANALYSIS_COPY_ELEMS, device="cuda")
+    dst = torch.empty_like(src)
+    copy_ms = time_ms(lambda: dst.copy_(src), ANALYSIS_REPS)
+    hbm = 2 * src.numel() * src.element_size() / (copy_ms / 1e3)
+    del src, dst
+    n = ANALYSIS_MATMUL
+    tf32 = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+    _no_tf32()
+    try:
+        matmul = {}
+        for dtype in (torch.bfloat16, torch.float32):
+            gen = torch.Generator(device="cuda").manual_seed(ANALYSIS_SEED)
+            a = torch.randn(n, n, device="cuda", dtype=dtype, generator=gen)
+            b = torch.randn(n, n, device="cuda", dtype=dtype, generator=gen)
+            matmul[dtype] = time_ms(lambda: torch.matmul(a, b), ANALYSIS_REPS)
+            del a, b
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
+    flops = 2 * n ** 3
+    host = torch.empty(ANALYSIS_LINK_BYTES, dtype=torch.uint8, pin_memory=True)
+    dev = torch.empty(ANALYSIS_LINK_BYTES, dtype=torch.uint8, device="cuda")
+    h2d_ms = time_ms(lambda: dev.copy_(host, non_blocking=True), ANALYSIS_REPS)
+    d2h_ms = time_ms(lambda: host.copy_(dev, non_blocking=True), ANALYSIS_REPS)
+    del host, dev
+    release_pinned_cache()
+    measured = {
+        "hbm_copy": (copy_ms, hbm, H100_SXM.hbm_bw),
+        "matmul_bf16": (matmul[torch.bfloat16], flops / (matmul[torch.bfloat16] / 1e3),
+                        H100_SXM.peak_flops),
+        "matmul_fp32": (matmul[torch.float32], flops / (matmul[torch.float32] / 1e3),
+                        FP32_PEAK),
+        "h2d_pinned": (h2d_ms, ANALYSIS_LINK_BYTES / (h2d_ms / 1e3), PCIE_BW),
+        "d2h_pinned": (d2h_ms, ANALYSIS_LINK_BYTES / (d2h_ms / 1e3), PCIE_BW)}
+    emit(phase="analysis_constants", reps=ANALYSIS_REPS,
+         copy_bytes=ANALYSIS_COPY_ELEMS * 4, matmul_n=n, link_bytes=ANALYSIS_LINK_BYTES,
+         **{k: {"ms": ms, "rate": rate, "data_sheet": sheet, "share": rate / sheet}
+            for k, (ms, rate, sheet) in measured.items()},
+         units="rate: bytes/s (copies, read and write for hbm_copy) or FLOP/s (matmul)",
+         card=smi)
+    return Hardware(name="h100 (measured here)", peak_flops=measured["matmul_bf16"][1],
+                    hbm_bw=hbm, ici_bw=H100_SXM.ici_bw, dcn_bw=H100_SXM.dcn_bw)
+
+
+def _step_ms(fn, device: str) -> float:
+    """One call of ``fn`` in ms: CUDA events on the card, the host clock
+    elsewhere (a CPU rehearsal's number is not a card time)."""
+    if device != "cuda":
+        t0 = time.perf_counter()
+        fn()
+        return (time.perf_counter() - t0) * 1e3
+    a, b = _event(), _event()
+    a.record()
+    fn()
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b)
+
+
+def _clone_tree(tree):
+    if isinstance(tree, dict):
+        return {k: _clone_tree(v) for k, v in tree.items()}
+    return tree.clone() if isinstance(tree, torch.Tensor) else tree
+
+
+def _trees_equal(a, b) -> bool:
+    if isinstance(a, dict):
+        return a.keys() == b.keys() and all(_trees_equal(a[k], b[k]) for k in a)
+    return torch.equal(a, b) if isinstance(a, torch.Tensor) else a == b
+
+
+def _watched(fn):
+    """``fn()`` under ``OpCostLog``: its result and the log's summary."""
+    from repro_torch.analysis.op_analysis import OpCostLog
+
+    log = OpCostLog(1, breakdown=True)
+    with log:
+        out = fn()
+    return out, log.summary()
+
+
+def _flop_counter(fn) -> int:
+    """The dot FLOPs ``FlopCounterMode`` counts in ``fn()`` (a run of its
+    own: the mode decomposes ``silu_backward``, which then rounds
+    otherwise)."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    flops = FlopCounterMode(display=False)
+    with flops:
+        fn()
+    return flops.get_total_flops()
+
+
+def _roofline_record(analysis: dict, cfg, shape, hws, step_ms: float) -> dict:
+    """``roofline_terms`` of one device on each of ``hws``, with the share of
+    its bound the measured step reaches."""
+    from repro_torch.analysis import roofline_terms
+
+    out = {}
+    for hw in hws:
+        t = roofline_terms(analysis, 1, cfg, shape, hw)
+        out[hw.name] = {k: t[k] for k in ("compute_s", "memory_s", "collective_s",
+                                          "dominant", "bound_s", "useful_ratio",
+                                          "roofline_fraction")}
+        out[hw.name]["bound_over_step"] = t["bound_s"] * 1e3 / step_ms
+    return out
+
+
+def analysis_train(smi: str, hws, device: str = "cuda", cfg=None,
+                   train=ANALYSIS_TRAIN) -> None:
+    """(b) One training step of Llama 3.2 1B (phase 14's shape) watched by
+    ``OpCostLog``, from the same state as a step without it (outputs,
+    parameters and AdamW state ``torch.equal``); the step timed without the
+    mode, then counted by ``FlopCounterMode`` and again under
+    ``FakeTensorMode`` on the host.  Gates: the dot FLOPs equal the flop
+    counter's and the fake run's, and are at least 6·N·T."""
+    import copy
+
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    from repro_torch.analysis import analyze_step
+    from repro_torch.configs import get_config
+    from repro_torch.launch.specs import input_specs
+    from repro_torch.models import init_params
+    from repro_torch.models.config import ShapeConfig
+    from repro_torch.train import AdamWConfig, adamw_init, make_train_step
+    from repro_torch.train.data import DataConfig, TokenStream
+
+    t_part = time.perf_counter()
+    published, cfg = cfg is None, cfg or get_config(TRAIN_ARCH)
+    shape = ShapeConfig("phase14_step", train["seq"], train["batch"], "train")
+    gen = torch.Generator(device=device).manual_seed(ANALYSIS_SEED)
+    model = init_params(cfg, generator=gen, device=device)
+    n_params = sum(p.numel() for p in model.parameters())
+    check(not published or n_params == ANALYSIS_PARAMS, f"{n_params} parameters")
+    opt = adamw_init(dict(model.named_parameters()))
+    stream = TokenStream(DataConfig(cfg.vocab_size, shape.seq_len, shape.global_batch, seed=0))
+    batch = {k: torch.from_numpy(v).to(device) for k, v in stream.batch_at(0).items()}
+    step = make_train_step(cfg, AdamWConfig(), microbatches=train["microbatches"], remat=True)
+    twin, twin_opt = copy.deepcopy(model), _clone_tree(opt)
+    _, _, plain = step(twin, twin_opt, batch)             # without the mode (and warm-up)
+    (_, _, metrics), a = _watched(lambda: step(model, opt, batch))
+    equal = (_trees_equal(plain, metrics) and _trees_equal(twin_opt, opt)
+             and all(torch.equal(p, q) for p, q in zip(twin.parameters(), model.parameters())))
+    del model, opt, metrics, plain
+    gc.collect()
+    ms = [_step_ms(lambda: step(twin, twin_opt, batch), device) for _ in range(2)]
+    counted = _flop_counter(lambda: step(twin, twin_opt, batch))
+    del twin, twin_opt
+    gc.collect()
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    t_fake = time.perf_counter()
+    with FakeTensorMode():
+        specs = input_specs(cfg, shape)
+        fake = analyze_step(lambda: step(specs["params"], specs["opt_state"], specs["batch"]), 1)
+        del specs
+    fake_s = time.perf_counter() - t_fake
+    tokens = shape.global_batch * shape.seq_len
+    step_ms = statistics.median(ms)
+    emit(phase="analysis_train", arch=cfg.name, params=n_params, tokens_per_step=tokens,
+         microbatches=train["microbatches"], remat=True, dot_flops=a["dot_flops"],
+         flop_counter_flops=counted, fake_dot_flops=fake["dot_flops"],
+         six_n_t=6 * n_params * tokens, conv_flops=a["conv_flops"],
+         hbm_bytes=a["hbm_bytes"], fake_hbm_bytes=fake["hbm_bytes"], num_ops=a["num_ops"],
+         top_hbm=a["top_hbm"][:8], step_ms=ms, step_ms_median=step_ms,
+         roofline=_roofline_record(a, cfg, shape, hws, step_ms),
+         outputs_equal=equal, fake_s=fake_s, seconds=time.perf_counter() - t_part,
+         device=device, card=smi)
+    check(equal, "the step under the mode equals the step without it")
+    check(a["dot_flops"] == counted, f"dot FLOPs {a['dot_flops']} against "
+          f"FlopCounterMode's {counted}")
+    check(fake["dot_flops"] == a["dot_flops"], f"dot FLOPs under FakeTensorMode "
+          f"{fake['dot_flops']} against {a['dot_flops']} on {device}")
+    check(a["dot_flops"] >= 6 * n_params * tokens, f"dot FLOPs {a['dot_flops']} below "
+          f"6·N·T = {6 * n_params * tokens}")
+
+
+def analysis_decode(smi: str, hws, device: str = "cuda", cfg=None,
+                    decode=ANALYSIS_DECODE) -> None:
+    """(b) One decode step of Llama 3.2 1B (phase 11's shape: batch 4 after
+    32 teacher-forced prompt tokens) watched as ``analysis_train``'s, from
+    a copy of the same cache as a step without the mode (logits and caches
+    ``torch.equal``), counted again under ``FakeTensorMode`` on the host,
+    and timed without the mode (CUDA-event median of ANALYSIS_REPS, each
+    from a copy of the cache).  Gates: the dot FLOPs equal the flop
+    counter's and the fake run's; the HBM bytes are at least the weights'
+    (phase 11's byte bound)."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    from repro_torch.analysis import analyze_step
+    from repro_torch.configs import get_config
+    from repro_torch.models import Transformer, decode_step, init_cache, init_params
+    from repro_torch.models.config import ShapeConfig
+
+    t_part = time.perf_counter()
+    cfg = cfg or get_config(MODEL_ARCH)
+    batch, prompt_len = decode["batch"], decode["prompt_len"]
+    shape = ShapeConfig("phase11_step", 2 * prompt_len, batch, "decode")
+    with torch.inference_mode():
+        gen = torch.Generator(device=device).manual_seed(ANALYSIS_SEED)
+        model = init_params(cfg, generator=gen, device=device)
+        weight_bytes = sum(p.numel() * p.element_size() for p in model.parameters())
+        n_params = sum(p.numel() for p in model.parameters())
+        prompts = torch.randint(0, cfg.vocab_size, (batch, prompt_len), generator=gen,
+                                device=device)
+        cache = init_cache(cfg, batch, shape.seq_len, device=device)
+        for i in range(prompt_len):
+            logits, cache = decode_step(model, cache, prompts[:, i])
+        tok = torch.argmax(logits, -1)
+        want, want_cache = decode_step(model, _clone_tree(cache), tok)
+        c = _clone_tree(cache)
+        (got, got_cache), a = _watched(lambda: decode_step(model, c, tok))
+        c = _clone_tree(cache)
+        counted = _flop_counter(lambda: decode_step(model, c, tok))
+        equal = torch.equal(want, got) and _trees_equal(want_cache, got_cache)
+        ms = []
+        for _ in range(ANALYSIS_REPS):
+            c = _clone_tree(cache)
+            ms.append(_step_ms(lambda: decode_step(model, c, tok), device))
+        del model, cache, want_cache, got_cache
+    with FakeTensorMode(), torch.inference_mode():
+        fm = Transformer(cfg, device="cpu")
+        fc = init_cache(cfg, batch, shape.seq_len, device="cpu")
+        fc["len"] = prompt_len
+        ftok = torch.empty(batch, dtype=tok.dtype)
+        fake = analyze_step(lambda: decode_step(fm, fc, ftok), 1)
+    step_ms = statistics.median(ms)
+    emit(phase="analysis_decode", arch=cfg.name, batch=batch, prompt_len=prompt_len,
+         dot_flops=a["dot_flops"], flop_counter_flops=counted,
+         fake_dot_flops=fake["dot_flops"], params=n_params, two_n_b=2 * n_params * batch,
+         hbm_bytes=a["hbm_bytes"], fake_hbm_bytes=fake["hbm_bytes"],
+         weight_bytes=weight_bytes, num_ops=a["num_ops"], top_hbm=a["top_hbm"][:8],
+         step_ms=ms, step_ms_median=step_ms,
+         roofline=_roofline_record(a, cfg, shape, hws, step_ms), outputs_equal=equal,
+         seconds=time.perf_counter() - t_part, device=device, card=smi)
+    check(equal, "the decode step under the mode equals the step without it")
+    check(a["dot_flops"] == counted and fake["dot_flops"] == counted,
+          f"decode dot FLOPs {a['dot_flops']}, FlopCounterMode {counted}, "
+          f"FakeTensorMode {fake['dot_flops']}")
+    check(a["hbm_bytes"] >= weight_bytes, f"decode HBM bytes {a['hbm_bytes']} below "
+          f"the weights' {weight_bytes}")
+
+
+def analysis_dryrun(smi: str, directory: Path, hws, records: int = 4) -> None:
+    """(c) The roofline table of the dry-run records in ``directory``
+    (``analysis/roofline.py::analyze_report_dir``) on each of ``hws``, every
+    row printed with its dominant term.  Gate: ``records`` rows, each with
+    HBM bytes and a finite bound."""
+    from repro_torch.analysis.roofline import _to_markdown, analyze_report_dir
+
+    for hw in hws:
+        rows = analyze_report_dir(str(directory), hw=hw)
+        check(len(rows) == records, f"{len(rows)} dry-run rows in {directory}, "
+              f"not {records}")
+        for r in rows:
+            check(r["hbm_bytes_per_device"] > 0 and np.isfinite(r["bound_s"]),
+                  f"dry-run row {r['file']}: {r['hbm_bytes_per_device']} B, "
+                  f"bound {r['bound_s']}")
+            emit(phase="analysis_dryrun", hw=hw.name, file=r["file"], arch=r["arch"],
+                 shape=r["shape"], mesh=r["mesh"], devices=r["devices"],
+                 **{k: r[k] for k in ("compute_s", "memory_s", "collective_s", "dominant",
+                                      "bound_s", "useful_ratio", "roofline_fraction",
+                                      "dot_flops_per_device", "hbm_bytes_per_device",
+                                      "ici_bytes", "dcn_bytes", "collectives")},
+                 host=smi)
+        print(_to_markdown(rows), file=sys.stderr, flush=True)
+
+
+def analysis_cachesim(smi: str, n: int, device: str = "cuda") -> None:
+    """(d) ``core/cachesim.py::simulate_chain`` on phase 7's CloverLeaf 2D
+    timestep chain at an n^2 interior (its 51 loops, recorded on a
+    ``reference`` Session that never flushes), at phase 7's capacity (a
+    third of the homes) and tile count (``choose_num_tiles`` at that
+    capacity with 3 slots, as the ``ooc`` executor chooses): every mode,
+    untiled and tiled, on the port's default ``hw`` (P100_PCIE) with
+    ``fast_capacity`` set to the capacity.  The modelled seconds are a model
+    of that ``hw``'s figures, not card times.  Gate: ``flat_fast`` raises
+    MemoryError (the homes are 3x the capacity), every other mode runs."""
+    from repro_torch.apps import CloverLeaf2D
+    from repro_torch.core import P100_PCIE, Session, analyze_chain
+    from repro_torch.core.cachesim import simulate_chain
+    from repro_torch.core.tiling import choose_num_tiles
+
+    t_part = time.perf_counter()
+    app = CloverLeaf2D(n, n, summary_every=0)
+    sess = Session("reference", device=device)
+    app.dt = 1e-4
+    app.record_timestep(sess)
+    loops = list(sess.queue)
+    sess.queue.clear()
+    sess.close()
+    homes = app.total_bytes()
+    check(homes == 25 * (n + 4) ** 2 * 4, f"homes {homes} B")
+    cap = homes / 3
+    t0 = time.perf_counter()
+    tiles = choose_num_tiles(analyze_chain(loops), cap, num_slots=3)
+    choose_s = time.perf_counter() - t0
+    hw = P100_PCIE.with_(fast_capacity=cap)
+    results = {}
+    for mode in ("flat_fast", "flat_slow", "cache", "um", "um_prefetch"):
+        for tiled in (False, True):
+            t0 = time.perf_counter()
+            try:
+                st = simulate_chain(loops, hw, mode=mode, tiled=tiled, num_tiles=tiles)
+                rec = {"modelled_s": st.time_s, "useful_bytes": st.useful_bytes,
+                       "hit_rate": st.hit_rate, "miss_bytes": st.miss_bytes,
+                       "writeback_bytes": st.writeback_bytes, "faults": st.faults,
+                       "modelled_bytes_per_s": st.achieved_bw}
+            except MemoryError as e:
+                rec = {"raised": f"MemoryError: {e}"}
+            rec["host_s"] = time.perf_counter() - t0
+            results[f"{mode}{'_tiled' if tiled else ''}"] = rec
+    emit(phase="analysis_cachesim", app="cloverleaf2d", interior=[n, n], loops=len(loops),
+         home_bytes=homes, capacity_bytes=cap, tiles=tiles, choose_tiles_s=choose_s,
+         hw=hw.name, page_bytes=hw.page_bytes,
+         model=f"modelled on {hw.name}'s figures with fast_capacity {cap:.0f} B; "
+               "not card times", results=results,
+         seconds=time.perf_counter() - t_part, host=smi)
+    check(all("raised" in results[k] for k in ("flat_fast", "flat_fast_tiled")),
+          f"flat_fast at 3x its capacity: {results['flat_fast']}")
+    check(all("raised" not in r and r["useful_bytes"] > 0 and r["modelled_s"] > 0
+              for k, r in results.items() if not k.startswith("flat_fast")),
+          f"every other mode runs: {results}")
+
+
+def analysis_phase(smi: str, dryrun: Path = None, n: int = 8192) -> None:
+    """Phase 16: the step analysis (module docstring), no hand-written
+    kernel launched.  ``dryrun`` holds phase 15's records (deleted here at
+    the end); without it, the phase runs the same dry run itself, in two
+    child processes beside (a) and (b)."""
+    t_phase = time.perf_counter()
+    release_pinned_cache()
+    for ops_fn in (ops.stencil2d, ops.stencil3d, ops.chain2d):
+        ops_fn.launches = 0
+    procs = []
+    if dryrun is None:
+        shutil.rmtree(LM_MESH_DIR / "dryrun", ignore_errors=True)
+        LM_MESH_DIR.mkdir(parents=True, exist_ok=True)
+        procs = lm_mesh_dryrun_start(LM_MESH_DIR)
+        dryrun = LM_MESH_DIR / "dryrun"
+    try:
+        hws = (H100_SXM, card_constants(smi))
+        analysis_train(smi, hws)
+        gc.collect()
+        torch.cuda.empty_cache()
+        analysis_decode(smi, hws)
+        gc.collect()
+        torch.cuda.empty_cache()
+        analysis_cachesim(smi, n)
+        if procs:
+            lm_mesh_dryrun_join(procs, LM_MESH_DIR, smi)
+        analysis_dryrun(smi, dryrun, hws)
+    finally:
+        for *_, log, proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        shutil.rmtree(dryrun, ignore_errors=True)
+    launches = _kernel_launches()
+    check(all(v == 0 for v in launches.values()),
+          f"the step analysis launches no hand-written kernel: {launches}")
+    emit(phase="analysis_done", seconds=time.perf_counter() - t_phase, launches=launches,
+         card=smi)
+
+
 def device_activity(prof, top: int = 12):
     """Of a ``torch.profiler`` run: the seconds the card was busy (the union
     of its kernels' and copies' intervals), the seconds of work they did
@@ -3458,6 +3876,9 @@ def main() -> int:
                     help="only phase 14, training (no result line)")
     ap.add_argument("--lm-mesh", action="store_true",
                     help="only phase 15, the LM mesh paths (no result line)")
+    ap.add_argument("--analysis", action="store_true",
+                    help="only phase 16, the step analysis, with its own dry run "
+                         "(no result line)")
     ap.add_argument("--chunked", metavar="DIR",
                     help="only phase 8's chunked run, held against DIR/want.json "
                          "(the whole run starts this in a child process)")
@@ -3501,6 +3922,9 @@ def main() -> int:
     if args.lm_mesh:
         lm_mesh_phase(smi)
         return 0
+    if args.analysis:
+        analysis_phase(smi, n=napp2)
+        return 0
     build_phase()
     path = kernels_phase(n2d, n3d, reps)
     launches = kernel_path_phase(n2d, n3d)
@@ -3530,7 +3954,8 @@ def main() -> int:
     moe_phase(smi)
     ssm_phase(smi)
     train_phase(smi)
-    lm_mesh_phase(smi)
+    lm_mesh_phase(smi, keep_dryrun=True)
+    analysis_phase(smi, dryrun=LM_MESH_DIR / "dryrun", n=napp2)
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": SOURCES[name][0],
          "replaces": SOURCES[name][1], "launches": launches[name],

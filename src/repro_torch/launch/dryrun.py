@@ -6,9 +6,11 @@ ranks in this one process (it stands for rank 0; collectives move
 nothing), build the production mesh, and run the REAL step function (the
 launcher's ``train_step``, ``prefill`` or ``serve_step``) once on sharded
 inputs under ``FakeTensorMode`` (shapes, no storage, no arithmetic), with
-``FlopCounterMode``, ``CommDebugMode``, a log of every collective's bytes
-and group size, and ``MemTracker`` around it.  Nothing runs on a card: the
-record says ``"device": "none (host-only fake tensors)"``.
+``FlopCounterMode``, ``CommDebugMode``, ``analysis.op_analysis.OpCostLog``
+(product FLOPs, HBM bytes at the eager op boundary, every collective's
+bytes, wire bytes and group size) and ``MemTracker`` around it.  Nothing
+runs on a card: the record says ``"device": "none (host-only fake
+tensors)"``.
 
 The record (``<stem>.json``) keeps the reference's keys where they mean
 something here:
@@ -26,7 +28,11 @@ something here:
   2·N·T otherwise, over all devices) and ``useful_ratio`` (model FLOPs per
   device over the counted ones) beside it;
 * ``collectives``: ``CommDebugMode``'s counts by op, and bytes (each
-  collective's input on this rank) by op and by group size.
+  collective's input on this rank) by op and by group size;
+* ``analysis``: ``OpCostLog``'s summary (the reference's
+  ``analyze_hlo_text`` keys, one device's), with ``roofline``, its
+  ``roofline_terms`` on ``H100_SXM``; ``analysis/roofline.py``'s
+  ``analyze_report_dir`` makes the table of a directory of records.
 
 No HLO is written (there is none).
 
@@ -41,65 +47,13 @@ import os
 import sys
 import time
 import traceback
-from collections import defaultdict
 from typing import Dict, Optional
 
 import numpy as np
 import torch
-from torch.utils._python_dispatch import TorchDispatchMode
 
-
-class CollectiveLog(TorchDispatchMode):
-    """Counts each collective op of the functional and c10d namespaces and
-    the bytes of its input on this rank, by op and by group size."""
-
-    def __init__(self):
-        super().__init__()
-        self.bytes_by_op: Dict[str, int] = defaultdict(int)
-        self.count_by_op: Dict[str, int] = defaultdict(int)
-        self.bytes_by_group: Dict[int, int] = defaultdict(int)
-
-    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
-        kwargs = kwargs or {}
-        name = func.__name__.split(".")[0]
-        if (func.namespace in ("_c10d_functional", "c10d_functional", "c10d")
-                and "wait" not in name and not name.startswith("_wrap")):
-            tensors = [a for a in args if isinstance(a, torch.Tensor)]
-            tensors += [t for a in args if isinstance(a, (list, tuple))
-                        for t in a if isinstance(t, torch.Tensor)]
-            if name in ("_allgather_base_", "_reduce_scatter_base_"):
-                tensors = tensors[1:]               # (output, input): count the input
-            elif func.namespace == "c10d" and name.startswith(("allgather", "reduce_scatter")):
-                tensors = tensors[-1:]
-            nbytes = sum(t.numel() * t.element_size() for t in tensors)
-            group = _group_size(args)
-            if not group and name in ("_allgather_base_", "_reduce_scatter_base_"):
-                out, inp = args[0], args[1]           # the group is the size ratio
-                group = max(out.numel(), inp.numel()) // max(min(out.numel(), inp.numel()), 1)
-            self.count_by_op[name] += 1
-            self.bytes_by_op[name] += nbytes
-            self.bytes_by_group[group] += nbytes
-        return func(*args, **kwargs)
-
-
-def _group_size(args) -> int:
-    """The group size of a collective's arguments: a functional op names
-    its group, a c10d op passes the group itself."""
-    from torch.distributed.distributed_c10d import _resolve_process_group
-
-    for a in args:
-        if isinstance(a, str):
-            try:
-                return _resolve_process_group(a).size()
-            except (ValueError, RuntimeError, KeyError):
-                pass
-        elif not isinstance(a, (torch.Tensor, int, float, bool, list, tuple)) \
-                and callable(getattr(a, "size", None)):
-            try:
-                return int(a.size())
-            except (TypeError, RuntimeError):
-                pass
-    return 0
+from repro_torch.analysis.op_analysis import OpCostLog
+from repro_torch.analysis.roofline import H100_SXM, model_flops, roofline_terms
 
 
 def _cell(cfg, shape, mesh, *, microbatches, compress, fsdp, remat, tp):
@@ -160,17 +114,6 @@ def _cell(cfg, shape, mesh, *, microbatches, compress, fsdp, remat, tp):
     return serve, arg_bytes
 
 
-def model_flops(cfg, shape) -> float:
-    """Useful FLOPs of the whole cell step, all devices (the reference's
-    ``analysis/roofline.py::model_flops``)."""
-    n_active = cfg.active_param_count()
-    if shape.kind == "train":
-        return 6.0 * n_active * shape.global_batch * shape.seq_len
-    if shape.kind == "prefill":
-        return 2.0 * n_active * shape.global_batch * shape.seq_len
-    return 2.0 * n_active * shape.global_batch
-
-
 def _process_group(world: int) -> None:
     import torch.distributed as dist
 
@@ -211,7 +154,7 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool, out_dir: Optional[str]
                                compress=compress, fsdp=fsdp, remat=remat, tp=tp)
         flops = FlopCounterMode(display=False)
         comm = CommDebugMode()
-        log = CollectiveLog()
+        log = OpCostLog(world)
         mem = MemTracker()
         with mem:
             with flops, comm, log:
@@ -221,6 +164,8 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool, out_dir: Optional[str]
     temp_bytes = max((int(v.get("Total", 0)) for v in peak.values()), default=0)
     counted = float(flops.get_total_flops())
     mf = model_flops(cfg, shape)
+    analysis = log.summary()
+    analysis["roofline"] = roofline_terms(analysis, world, cfg, shape, H100_SXM)
     result = {
         "arch": cfg.name,
         "shape": shape_name,
@@ -243,6 +188,7 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool, out_dir: Optional[str]
             "bytes_by_op": dict(log.bytes_by_op),
             "bytes_by_group_size": {str(k): v for k, v in sorted(log.bytes_by_group.items())},
         },
+        "analysis": analysis,
         "flags": {"microbatches": microbatches, "compress": compress,
                   "fsdp": fsdp, "remat": remat, "tp": tp, "reduced": reduced},
     }

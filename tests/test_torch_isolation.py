@@ -1,7 +1,8 @@
-"""The port stands alone: ``repro_torch`` (its apps, its trainer and its
-mesh paths included) and ``chip_smoke.py`` import neither JAX nor the JAX
-package, the package no ``torch.testing._internal``, and its entry points
-refuse to fall back to the CPU."""
+"""The port stands alone: ``repro_torch`` (its apps, its trainer, its
+mesh paths and its step analysis included) and ``chip_smoke.py`` import
+neither JAX nor the JAX package, the package no
+``torch.testing._internal``, and its entry points refuse to fall back to
+the CPU."""
 import ast
 import os
 import subprocess
@@ -31,6 +32,7 @@ import repro_torch.launch.train
 import repro_torch.distributed.sharding, repro_torch.distributed.spmd
 import repro_torch.distributed.compression
 import repro_torch.launch.mesh, repro_torch.launch.specs, repro_torch.launch.dryrun
+import repro_torch.analysis, repro_torch.analysis.op_analysis, repro_torch.core.cachesim
 import chip_smoke
 from repro_torch.core import Session
 s = Session("ooc", device="cpu", num_tiles=2, capacity_bytes=float("inf"))
@@ -43,6 +45,9 @@ assert repro_torch.launch.serve.main(["--arch", "mamba2_1_3b", "--reduced",
                                       "--device", "cpu", "--quiet"]) == 0
 assert repro_torch.launch.train.main(["--arch", "llama3_2_1b", "--reduced",
                                       "--device", "cpu", "--steps", "2", "--quiet"]) == 0
+a = repro_torch.analysis.analyze_step(
+    lambda: repro_torch.models.forward(m, torch.zeros((1, 4), dtype=torch.long)), 1)
+assert a["dot_flops"] > 0 and a["hbm_bytes"] > 0
 assert "jax" not in [m.split(".")[0] for m in sys.modules if sys.modules[m] is not None]
 print("isolated")
 """
