@@ -265,6 +265,7 @@ imports nothing of JAX or of the JAX package.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import gc
 import hashlib
 import json
@@ -1771,13 +1772,17 @@ def _decode_tokens(prompts: torch.Tensor, gen_tokens: int):
     return [prompts[:, i] for i in range(prompts.shape[1])] + [None] * (gen_tokens - 1)
 
 
-def resident_decode(model, cache, prompts: torch.Tensor, gen_tokens: int) -> dict:
+def resident_decode(model, cache, prompts: torch.Tensor, gen_tokens: int, step=None) -> dict:
     """The launcher's loop on the resident model: a teacher-forced prefill,
     then greedy decode; every step's logits and token kept, each decode step
     timed by CUDA events on the current stream, the prefill by the host clock
-    ending in a synchronise."""
+    ending in a synchronise.  ``step`` (``decode_step``'s signature without
+    the model) is the eager ``decode_step`` unless given."""
     from repro_torch.models import decode_step
 
+    if step is None:
+        def step(c, t):
+            return decode_step(model, c, t)
     P = prompts.shape[1]
     logits_all, events = [], []
     torch.cuda.synchronize()
@@ -1791,12 +1796,12 @@ def resident_decode(model, cache, prompts: torch.Tensor, gen_tokens: int) -> dic
             a = torch.cuda.Event(enable_timing=True)
             b = torch.cuda.Event(enable_timing=True)
             a.record()
-            logits, cache = decode_step(model, cache, tok)
+            logits, cache = step(cache, tok)
             tok = torch.argmax(logits, -1)
             b.record()
             events.append((a, b))
         else:
-            logits, cache = decode_step(model, cache, tok_in)
+            logits, cache = step(cache, tok_in)
             tok = torch.argmax(logits, -1)
         logits_all.append(logits)
     torch.cuda.synchronize()
@@ -1842,10 +1847,104 @@ def streamed_decode(streamer, cache, prompts: torch.Tensor, gen_tokens: int,
             "logits_equal": not bool(logits_diff), "tokens_equal": not bool(token_diff)}
 
 
+# Device activities a replayed step runs outside its graph: the token copy,
+# the position fill and the logits copy.  More in a profiled replay means the
+# profiler sees the graph's own kernels.
+GRAPH_OUTSIDE_ACTIVITIES = 3
+
+
+def card_decoder(model, cache, device):
+    """The step phases 11-13 hold against the eager one: a ``DecodeGraph``
+    on ``cache`` on the card; on the CPU, where the tests rehearse these
+    phases, the eager ``decode_step`` (a graph needs a card)."""
+    from repro_torch.models import DecodeGraph, decode_step
+
+    if torch.device(device).type == "cuda":
+        return DecodeGraph(model, cache)
+    return lambda c, t: decode_step(model, c, t)
+
+
+def _max_len(cfg, cache) -> int:
+    """The slots of ``cache``'s attention caches (``cache_position``'s limit)."""
+    key = "sk" if cfg.family == "hybrid" else ("ckv" if cfg.mla else "k")
+    return cache[key].shape[2]
+
+
+def cache_full_check(cfg, cache, step, tok: torch.Tensor) -> dict:
+    """``step`` driven greedily from ``tok`` to ``cache``'s last slot, then
+    one token more: it must raise ``CacheFullError`` and leave every cache
+    tensor and ``len`` as they were (held against clones).  A pure ssm cache
+    has no length and decodes on: not checked."""
+    from repro_torch.models import CacheFullError
+
+    if cfg.family == "ssm":
+        return {"checked": False, "why": "a pure ssm cache has no length: it decodes on"}
+    max_len = _max_len(cfg, cache)
+    steps = 0
+    while cache["len"] < max_len:
+        logits, cache = step(cache, tok)
+        tok = torch.argmax(logits, -1)
+        steps += 1
+    before = {k: v.clone() for k, v in cache.items() if k != "len"}
+    raised = None
+    try:
+        step(cache, tok)
+    except CacheFullError as e:
+        raised = str(e)
+    check(raised is not None, f"no CacheFullError past the cache's {max_len} slots")
+    unchanged = cache["len"] == max_len and all(torch.equal(v, cache[k])
+                                                for k, v in before.items())
+    check(unchanged, "a step past the cache's last slot changed the cache")
+    return {"checked": True, "max_len": max_len, "steps_to_full": steps, "raised": raised,
+            "cache_unchanged": unchanged}
+
+
+def graphed_decode(phase: str, arch: str, model, fresh, prompts: torch.Tensor,
+                   gen_tokens: int, want: dict, bound_ms: float, smi: str,
+                   device: str = "cuda") -> dict:
+    """The launcher's loop again, from ``fresh()`` (a new cache) on the same
+    prompts, through ``card_decoder``'s step: every step's logits
+    ``torch.equal`` to the eager run ``want``'s; ms a token replayed (CUDA
+    events) beside eager and the step's byte bound; the graph's warm-up
+    steps, capture seconds and pool bytes; peak device memory with the eager
+    run's logits and both caches present; then ``cache_full_check`` on this
+    cache.  Emits a ``phase`` record and returns the run."""
+    from repro_torch.models import DecodeGraph
+
+    t_part = time.perf_counter()
+    cache = fresh()
+    torch.cuda.reset_peak_memory_stats()
+    step = card_decoder(model, cache, device)
+    got = resident_decode(model, cache, prompts, gen_tokens, step=step)
+    peak = torch.cuda.max_memory_allocated()
+    same = [torch.equal(a, b) for a, b in zip(want["logits"], got["logits"])]
+    check(len(same) == len(want["logits"]) and all(same),
+          f"{arch}: replayed steps {[i for i, s in enumerate(same) if not s]} differ "
+          f"from the eager run's")
+    full = cache_full_check(model.cfg, cache, step, got["tokens"][:, -1])
+    graphed = isinstance(step, DecodeGraph)
+    ms, eager_ms = statistics.median(got["ms"]), statistics.median(want["ms"])
+    rec = dict(phase=phase, arch=arch, graphed=graphed, steps_equal=len(same),
+               prefill_s=got["prefill_s"], decode_wall_s=got["decode_wall_s"],
+               eager_ms_per_token_median=eager_ms, replay_ms_per_token_median=ms,
+               replay_ms_per_token=got["ms"], tokens_per_s=prompts.shape[0] * 1e3 / ms,
+               bytes_bound_ms=bound_ms, eager_over_bound=eager_ms / bound_ms,
+               replay_over_bound=ms / bound_ms, eager_over_replay=eager_ms / ms,
+               peak_device_bytes=peak, reserved_bytes=torch.cuda.memory_reserved(),
+               cache_full=full, seconds=time.perf_counter() - t_part, card=smi)
+    if graphed:
+        rec.update(warmup_steps=step.WARMUP_STEPS, warmup_sync_debug=step.SYNC_DEBUG,
+                   capture_s=step.capture_s, pool_bytes=step.pool_bytes,
+                   replays=step.replays)
+    emit(**rec)
+    return got
+
+
 def fp32_check(model, prompts: torch.Tensor) -> dict:
     """The same weights cast to fp32 (TF32 off): FP32_STEPS teacher-forced
-    decode steps on the card and the same steps on the CPU, both through the
-    port's ``decode_step``; the logits held at FP32_TOL."""
+    decode steps on the card through a ``DecodeGraph`` (one warm-up step,
+    the rest replayed) and the same steps on the CPU through
+    ``decode_step``; the logits held at FP32_TOL."""
     import copy
 
     from repro_torch.models import decode_step, init_cache
@@ -1861,12 +1960,15 @@ def fp32_check(model, prompts: torch.Tensor) -> dict:
             if dev == "cpu":
                 m32 = m32.to("cpu")
             cache = init_cache(m32.cfg, prompts.shape[0], FP32_STEPS, device=dev)
+            step = (card_decoder(m32, cache, dev) if dev == "cuda"
+                    else (lambda c, t: decode_step(m32, c, t)))
             t0 = time.perf_counter()
             steps = []
             for i in range(FP32_STEPS):
-                logits, cache = decode_step(m32, cache, prompts[:, i].to(dev))
+                logits, cache = step(cache, prompts[:, i].to(dev))
                 steps.append(logits.cpu())
-            out[dev] = (steps, time.perf_counter() - t0)
+            out[dev] = (steps, time.perf_counter() - t0, getattr(step, "replays", 0))
+            del step
         del m32
     finally:
         torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
@@ -1874,7 +1976,8 @@ def fp32_check(model, prompts: torch.Tensor) -> dict:
     for got, want in zip(out["cuda"][0], out["cpu"][0]):
         errs.append(float((got - want).abs().max()))
         ok = ok and torch.allclose(got, want, **FP32_TOL)
-    return {"steps": FP32_STEPS, "max_abs_diff": max(errs), "max_abs_diff_per_step": errs,
+    return {"steps": FP32_STEPS, "card_replays": out["cuda"][2], "max_abs_diff": max(errs),
+            "max_abs_diff_per_step": errs,
             "max_abs_logit": float(max(w.abs().max() for w in out["cpu"][0])),
             "within_tolerance": ok, "cuda_s": out["cuda"][1], "cpu_s": out["cpu"][1],
             "tolerance": FP32_TOL}
@@ -1895,6 +1998,8 @@ def launcher_subprocess(smi: str, arch: str, extra, rc: int) -> None:
     check(out.returncode == rc, f"{' '.join(cmd[1:])} exited {out.returncode}, "
           f"not {rc}: {out.stderr[-2000:]}")
     lines = (out.stdout if rc == 0 else out.stderr).strip().splitlines()
+    check(rc != 0 or "--offload" in extra or "graph_capture=" in lines[-1],
+          f"{' '.join(cmd[1:])} served through the graph: {lines[-1]!r}")
     emit(phase="model_launcher", args=cmd[3:], how="subprocess", rc=out.returncode,
          seconds=time.perf_counter() - t0, line=lines[-1] if lines else "", card=smi)
 
@@ -1926,16 +2031,21 @@ def launcher_runs(smi: str, arch: str, modes) -> None:
         check(line.startswith(f"arch={name} ") if rc == 0
               else "--offload supports dense/vlm families" in line,
               f"launch.serve.main({argv}) ended with {line!r}")
+        check(rc != 0 or ("graph_capture=" in line) != ("--offload" in extra),
+              f"launch.serve.main({argv}) served resident through the graph, streamed "
+              f"eagerly: {line!r}")
         emit(phase="model_launcher", args=argv, how="in-process", rc=got,
              seconds=time.perf_counter() - t0, line=line, card=smi)
 
 
 def model_phase(smi: str, batch: int = 4, prompt_len: int = 32, gen_tokens: int = 32) -> None:
     """Llama 3.2 1B at its published config, seeded random weights made on the
-    card: the launcher's decode resident, then the same weights through a
-    ``StreamedDecoder`` of MODEL_WINDOW slots (every step's logits and
-    tokens equal to the resident run's, the device bytes of the slots
-    measured), an fp32 check of the card against the CPU, and the
+    card: the launcher's decode resident, eager, then through the graph
+    (``graphed_decode``: every step equal to the eager run, the cache-full
+    check), 4 profiled steps of each, an fp32 check of the graphed card
+    against the CPU, then the same weights through a ``StreamedDecoder`` of
+    MODEL_WINDOW slots (every step's logits and tokens equal to the graphed
+    resident run's, the device bytes of the slots measured), and the
     launcher resident as a subprocess and streamed in-process.  No
     hand-written kernel may launch."""
     from repro_torch.configs import get_config
@@ -1983,6 +2093,14 @@ def model_phase(smi: str, batch: int = 4, prompt_len: int = 32, gen_tokens: int 
              tokens_per_s=batch * 1e3 / res_ms, decode_wall_s=want["decode_wall_s"],
              weights_bytes_bound_ms=bound_ms, over_bound=res_ms / bound_ms,
              peak_device_bytes=res_peak, sample=want["tokens"][0, :8].tolist(), card=smi)
+        graphed = graphed_decode("model_graph", MODEL_ARCH, model,
+                                 lambda: init_cache(cfg, batch, max_len, device="cuda"),
+                                 prompts, gen_tokens, want, bound_ms, smi)
+        del want
+        for graph in (False, True):
+            decode_profile("model_graph_profile" if graph else "model_profile", MODEL_ARCH,
+                           model, init_cache(cfg, batch, MOE_PROFILED_STEPS + 3, device="cuda"),
+                           prompts, smi, graphed=graph)
 
         fp32 = fp32_check(model, prompts)
         emit(phase="model_fp32", arch=MODEL_ARCH, **fp32, card=smi)
@@ -1997,10 +2115,11 @@ def model_phase(smi: str, batch: int = 4, prompt_len: int = 32, gen_tokens: int 
         gc.collect()
         torch.cuda.empty_cache()
         cache = init_cache(cfg, batch, max_len, device="cuda")
-        run = streamed_decode(streamer, cache, prompts, gen_tokens, want)
+        run = streamed_decode(streamer, cache, prompts, gen_tokens, graphed)
         upload_s = streamer.upload_seconds()
-        check(run["logits_equal"], "every streamed step's logits equal the resident run's")
-        check(run["tokens_equal"], "the streamed tokens equal the resident run's")
+        check(run["logits_equal"],
+              "every streamed step's logits equal the graphed resident run's")
+        check(run["tokens_equal"], "the streamed tokens equal the graphed resident run's")
         held = max(run["held"])
         check(held <= MODEL_WINDOW * slice_bytes,
               f"device weight bytes {held} within {MODEL_WINDOW} slices of {slice_bytes}")
@@ -2021,7 +2140,7 @@ def model_phase(smi: str, batch: int = 4, prompt_len: int = 32, gen_tokens: int 
              resident_ms_per_token=res_ms, modelled_step_ms=st.modelled_step_s * 1e3,
              modelled_hw="modelled, p100-pcie", wall_s=run["wall_s"],
              logits_equal=True, tokens_equal=True, card=smi)
-        del streamer, want, model, cache
+        del streamer, graphed, model, cache
         gc.collect()
         torch.cuda.empty_cache()
     release_pinned_cache()
@@ -2099,8 +2218,12 @@ def moe_fp32_check(cfg, prompts: torch.Tensor, device: str = "cuda") -> dict:
     """``cfg``'s published widths at MOE_FP32_LAYERS layers in fp32 (TF32
     off): FP32_STEPS teacher-forced decode steps on ``device`` and on the
     CPU, every layer's routing compared first, then the logits at FP32_TOL.
-    ``min_gap`` is the smallest gap between a token's k-th and (k+1)-th
-    router probability on the CPU: how near a routing decision came to a tie."""
+    The card runs twice: eagerly, which logs its routing (a replay calls no
+    Python), and through a ``DecodeGraph`` (one warm-up step, the rest
+    replayed), whose logits are the ones held at FP32_TOL and must equal the
+    eager run's.  ``min_gap`` is the smallest gap between a token's k-th and
+    (k+1)-th router probability on the CPU: how near a routing decision came
+    to a tie."""
     from repro_torch.models import decode_step, init_cache, init_params
 
     cfg = cfg.with_(num_layers=MOE_FP32_LAYERS, dtype="float32")
@@ -2111,16 +2234,22 @@ def moe_fp32_check(cfg, prompts: torch.Tensor, device: str = "cuda") -> dict:
         gen = torch.Generator(device=device).manual_seed(MOE_SEED + 1)
         model = init_params(cfg, generator=gen, device=device)
         out = {}
-        for role, dev in (("card", device), ("cpu", "cpu")):
+        for role, dev in (("card", device), ("graph", device), ("cpu", "cpu")):
             model = model.to(dev)
             cache = init_cache(cfg, prompts.shape[0], FP32_STEPS, device=dev)
+            step = (card_decoder(model, cache, dev) if role == "graph"
+                    else (lambda c, t: decode_step(model, c, t)))
+            log = routing_log()
             t0 = time.perf_counter()
             steps = []
-            with routing_log() as log:
+            # the log copies each routing to the host: not inside a graph
+            with log if role != "graph" else contextlib.nullcontext():
                 for i in range(FP32_STEPS):
-                    logits, cache = decode_step(model, cache, prompts[:, i].to(dev))
+                    logits, cache = step(cache, prompts[:, i].to(dev))
                     steps.append(logits.cpu())
-            out[role] = (steps, log.calls, time.perf_counter() - t0)
+            out[role] = (steps, log.calls, time.perf_counter() - t0,
+                         getattr(step, "replays", 0))
+            del step
         del model, cache
     finally:
         torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
@@ -2132,52 +2261,78 @@ def moe_fp32_check(cfg, prompts: torch.Tensor, device: str = "cuda") -> dict:
         top = probs.sort(-1, descending=True).values
         gaps.append(float((top[:, k - 1] - top[:, k]).min()))
     errs, ok = [], True
-    for got, want in zip(out["card"][0], out["cpu"][0]):
+    for got, want in zip(out["graph"][0], out["cpu"][0]):
         errs.append(float((got - want).abs().max()))
         ok = ok and torch.allclose(got, want, **FP32_TOL)
     return {"layers": MOE_FP32_LAYERS, "steps": FP32_STEPS,
             "routing_calls": len(calls), "routing_equal": not flips and bool(calls),
             "routing_flips": flips, "min_gap": min(gaps), "min_gap_per_call": gaps,
+            "graph_replays": out["graph"][3],
+            "graph_equals_eager": all(torch.equal(a, b)
+                                      for a, b in zip(out["graph"][0], out["card"][0])),
             "max_abs_diff": max(errs), "max_abs_diff_per_step": errs,
             "max_abs_logit": float(max(w.abs().max() for w in out["cpu"][0])),
-            "within_tolerance": ok, "card_s": out["card"][2], "cpu_s": out["cpu"][2],
-            "tolerance": FP32_TOL}
+            "within_tolerance": ok, "card_s": out["card"][2], "graph_s": out["graph"][2],
+            "cpu_s": out["cpu"][2], "tolerance": FP32_TOL}
 
 
 def decode_profile(phase: str, arch: str, model, cache, prompts: torch.Tensor, smi: str,
-                   steps: int = MOE_PROFILED_STEPS) -> None:
+                   steps: int = MOE_PROFILED_STEPS, graphed: bool = False) -> None:
     """``steps`` teacher-forced decode steps on ``cache``, a fresh one of at
-    least ``steps + 2`` positions, under ``torch.profiler`` (device activity
-    only; after two unprofiled steps): the card's busy and idle share of the
+    least ``steps + 3`` positions, under ``torch.profiler`` (device activity
+    only; after two unprofiled steps, or with ``graphed`` through a
+    ``DecodeGraph``, after its warm-up step and the capture, so every
+    profiled step is a replay): the card's busy and idle share of the
     host's wall, and the kernels that took its time, as a ``phase`` record.
     The profiler slows the host, so the wall here is above the unprofiled
-    runs'."""
+    runs'.  A graphed record says whether the profiler saw the graph's own
+    kernels (more than GRAPH_OUTSIDE_ACTIVITIES activities a step)."""
     from torch.profiler import ProfilerActivity, profile
 
-    from repro_torch.models import decode_step
+    from repro_torch.models import DecodeGraph, decode_step
 
-    for i in range(2):
-        decode_step(model, cache, prompts[:, i])
+    t_part = time.perf_counter()
+    if graphed:
+        step = DecodeGraph(model, cache)
+        lead = step.WARMUP_STEPS + 1
+    else:
+        def step(c, t):
+            return decode_step(model, c, t)
+        lead = 2
+    for i in range(lead):
+        step(cache, prompts[:, i])
     torch.cuda.synchronize()
+    t_start = time.perf_counter()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        for i in range(2, steps + 2):
-            decode_step(model, cache, prompts[:, i])
+        for i in range(lead, lead + steps):
+            step(cache, prompts[:, i])
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+        t_stop = time.perf_counter()
+    t_events = time.perf_counter()
     busy_s, work_s, count, top = device_activity(prof)
-    emit(phase=phase, arch=arch, steps=steps, wall_s=wall,
-         ms_per_step=wall / steps * 1e3, device_busy_ms_per_step=busy_s / steps * 1e3,
-         device_idle_share=1 - busy_s / wall, device_work_s=work_s,
-         device_activities_per_step=count / steps, top_device_ms=top, card=smi)
+    rec = dict(phase=phase, arch=arch, steps=steps, graphed=graphed, wall_s=wall,
+               seconds=time.perf_counter() - t_part, profiler_start_s=t0 - t_start,
+               profiler_stop_s=t_events - t_stop,
+               events_s=time.perf_counter() - t_events,
+               ms_per_step=wall / steps * 1e3, device_busy_ms_per_step=busy_s / steps * 1e3,
+               device_idle_share=1 - busy_s / wall, device_work_s=work_s,
+               device_activities_per_step=count / steps, top_device_ms=top, card=smi)
+    if graphed:
+        rec.update(replays=step.replays,
+                   profiler_sees_graph_kernels=count / steps > GRAPH_OUTSIDE_ACTIVITIES)
+    emit(**rec)
 
 
 def moe_decode(arch: str, smi: str, batch: int, prompt_len: int, gen_tokens: int,
                device: str = "cuda") -> None:
     """One moe arch at its published config, seeded bf16 weights made on the
-    card: the launcher's decode resident, twice from a fresh cache, every
-    step's logits ``torch.equal`` across the two runs; then the fp32 check.
-    (``device`` is the card; the CPU test of this phase passes ``"cpu"``.)"""
+    card: the launcher's decode resident, eager, then from a fresh cache
+    through the graph (``graphed_decode``: every step's logits
+    ``torch.equal`` to the eager run's, the cache-full check), both
+    profiled; then the fp32 check.  (``device`` is the card; the CPU test of
+    this phase passes ``"cpu"``.)"""
     from repro_torch.configs import get_config
     from repro_torch.models import init_cache, init_params
     from repro_torch.models.moe import capacity
@@ -2215,17 +2370,15 @@ def moe_decode(arch: str, smi: str, batch: int, prompt_len: int, gen_tokens: int
         check(all(bool(torch.isfinite(lg).all()) for lg in want["logits"]),
               "resident logits are finite")
         check(want["logits"][0].dtype == torch.bfloat16, "bf16 logits")
-        again = resident_decode(model, init_cache(cfg, batch, max_len, device=device),
-                                prompts, gen_tokens)
-        same = [torch.equal(a, b) for a, b in zip(want["logits"], again["logits"])]
-        check(all(same), f"{arch}: steps {[i for i, s in enumerate(same) if not s]} of "
-              f"the second run differ from the first")
         peak = torch.cuda.max_memory_allocated()
         # a step reads every weight but the embedding table, of which it
         # gathers one row a sequence: C = T at this batch, so every expert runs
         embed = model.embed.numel() * model.embed.element_size()
         bound_bytes = weight_bytes - embed + batch * cfg.d_model * model.embed.element_size()
         bound_ms = bound_bytes / PEAK_BYTES_S * 1e3
+        graphed = graphed_decode("moe_graph", arch, model,
+                                 lambda: init_cache(cfg, batch, max_len, device=device),
+                                 prompts, gen_tokens, want, bound_ms, smi, device)
         ms = statistics.median(want["ms"])
         emit(phase="moe_resident", arch=arch, params=n_params, weight_bytes=weight_bytes,
              active_params=cfg.active_param_count(), free_before=free,
@@ -2234,18 +2387,17 @@ def moe_decode(arch: str, smi: str, batch: int, prompt_len: int, gen_tokens: int
              prefill_s=want["prefill_s"], decode_ms_per_token_median=ms,
              decode_ms_per_token=want["ms"], tokens_per_s=batch * 1e3 / ms,
              decode_wall_s=want["decode_wall_s"],
-             second_run={"prefill_s": again["prefill_s"],
-                         "decode_ms_per_token_median": statistics.median(again["ms"]),
-                         "decode_wall_s": again["decode_wall_s"]},
-             steps_equal=len(same), bytes_bound=bound_bytes, bytes_bound_ms=bound_ms,
+             steps_equal=len(graphed["logits"]), bytes_bound=bound_bytes,
+             bytes_bound_ms=bound_ms,
              over_bound=ms / bound_ms, peak_device_bytes=peak,
              cache_bytes_per_token_layer=per_token_layer,
              sample=want["tokens"][0, :8].tolist(), card=smi)
         if device == "cuda":
-            decode_profile("moe_profile", arch, model,
-                           init_cache(cfg, batch, MOE_PROFILED_STEPS + 2, device=device),
-                           prompts, smi)
-        del model, cache, want, again
+            for graph in (False, True):
+                decode_profile("moe_graph_profile" if graph else "moe_profile", arch, model,
+                               init_cache(cfg, batch, MOE_PROFILED_STEPS + 3, device=device),
+                               prompts, smi, graphed=graph)
+        del model, cache, want, graphed
         gc.collect()
         torch.cuda.empty_cache()
         fp32 = moe_fp32_check(cfg, prompts, device)
@@ -2253,6 +2405,8 @@ def moe_decode(arch: str, smi: str, batch: int, prompt_len: int, gen_tokens: int
         check(fp32["routing_equal"],
               f"{arch}: routing on the card differs from the CPU at calls "
               f"{fp32['routing_flips']} (smallest top-k gap {fp32['min_gap']})")
+        check(fp32["graph_equals_eager"],
+              f"{arch}: fp32 replayed logits differ from the eager run's on the card")
         check(fp32["within_tolerance"],
               f"{arch}: fp32 logits on the card against the CPU: max diff "
               f"{fp32['max_abs_diff']}")
@@ -2351,7 +2505,8 @@ def ssm_step_bytes(model, batch: int) -> dict:
 def family_fp32_check(model, prompts: torch.Tensor, enc_inputs=None,
                       device: str = "cuda") -> dict:
     """An fp32 copy of ``model`` at full depth (TF32 off), run three ways:
-    on ``device``, on the CPU, and on the CPU with fp64 weights and
+    on ``device`` (through a ``DecodeGraph``, one warm-up step, the rest
+    replayed), on the CPU, and on the CPU with fp64 weights and
     activations (the port keeps fp32 inside its norms, rope, attention and
     scan, so this run is more precise, not exact).  Each runs the
     launcher's teacher-forced decode (on ``device``, ssm and hybrid: over
@@ -2389,9 +2544,12 @@ def family_fp32_check(model, prompts: torch.Tensor, enc_inputs=None,
             copy_s = time.perf_counter() - t0
             n = P if scan and role == "card" else FP32_STEPS
             cache = fresh_cache(cfg, B, n, dev, enc_len=P)
+            step = (card_decoder(m, cache, dev) if role == "card"
+                    else (lambda c, t: decode_step(m, c, t)))
             t0 = time.perf_counter()
-            steps = [decode_step(m, cache, prompts[:, i].to(dev))[0] for i in range(n)]
-            rec = {"steps": torch.stack(steps, 1).cpu().double()}
+            steps = [step(cache, prompts[:, i].to(dev))[0] for i in range(n)]
+            rec = {"steps": torch.stack(steps, 1).cpu().double(),
+                   "replays": getattr(step, "replays", 0)}
             if scan and role == "card":
                 rec["forward"] = forward(m, prompts).cpu().double()
             if cfg.encdec:
@@ -2400,7 +2558,7 @@ def family_fp32_check(model, prompts: torch.Tensor, enc_inputs=None,
             rec["s"] = time.perf_counter() - t0
             rec["copy_s"] = copy_s
             out[role] = rec
-            del cache, steps
+            del cache, steps, step
         del m
     finally:
         torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
@@ -2415,6 +2573,7 @@ def family_fp32_check(model, prompts: torch.Tensor, enc_inputs=None,
            "max_abs_logit": float(ref.abs().max()),
            "within_tolerance": bool(torch.allclose(card, cpu, **FP32_TOL)),
            "tolerance": FP32_TOL,
+           "card_replays": out["card"]["replays"],
            "card_vs_fp64": maxdiff(card, ref), "cpu_vs_fp64": maxdiff(cpu, ref),
            "as_accurate_as_cpu": maxdiff(card, ref) <= FP64_RATIO * maxdiff(cpu, ref),
            "fp64_ratio": FP64_RATIO,
@@ -2440,9 +2599,12 @@ def ssm_decode(arch: str, smi: str, batch: int, prompt_len: int, gen_tokens: int
                device: str = "cuda") -> None:
     """One ssm, hybrid or encdec arch at its published config, seeded bf16
     weights made on the card: the launcher's decode resident (encdec's
-    encoder K/V stubbed as the launcher stubs them), its ms a token beside
-    the byte bound of a step, 4 profiled steps, then the fp32 checks.
-    (``device`` is the card; the CPU test of this phase passes ``"cpu"``.)"""
+    encoder K/V stubbed as the launcher stubs them), eager, then from a
+    fresh cache through the graph (``graphed_decode``: every step
+    ``torch.equal`` to the eager run, the cache-full check), their ms a
+    token beside the byte bound of a step, 4 profiled steps of each, then
+    the fp32 checks.  (``device`` is the card; the CPU test of this phase
+    passes ``"cpu"``.)"""
     from repro_torch.configs import get_config
     from repro_torch.models import init_params
 
@@ -2486,11 +2648,15 @@ def ssm_decode(arch: str, smi: str, batch: int, prompt_len: int, gen_tokens: int
              decode_wall_s=want["decode_wall_s"], bytes_bound=step,
              bytes_bound_ms=bound_ms, over_bound=ms / bound_ms, cache_bytes=cache_bytes,
              peak_device_bytes=peak, sample=want["tokens"][0, :8].tolist(), card=smi)
+        graphed = graphed_decode("ssm_graph", arch, model,
+                                 lambda: fresh_cache(cfg, batch, max_len, device, prompt_len),
+                                 prompts, gen_tokens, want, bound_ms, smi, device)
         if device == "cuda":
-            decode_profile("ssm_profile", arch, model,
-                           fresh_cache(cfg, batch, MOE_PROFILED_STEPS + 2, device,
-                                       enc_len=prompt_len), prompts, smi)
-        del cache, want
+            for graph in (False, True):
+                decode_profile("ssm_graph_profile" if graph else "ssm_profile", arch, model,
+                               fresh_cache(cfg, batch, MOE_PROFILED_STEPS + 3, device,
+                                           enc_len=prompt_len), prompts, smi, graphed=graph)
+        del cache, want, graphed
         t0 = time.perf_counter()
         fp32 = family_fp32_check(model, prompts, enc_inputs, device)
         emit(phase="ssm_fp32", arch=arch, **fp32, seconds=time.perf_counter() - t0, card=smi)

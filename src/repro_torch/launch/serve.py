@@ -11,13 +11,18 @@ layer slices on the device at any point::
     python -m repro_torch.launch.serve --arch llama3_2_1b --reduced --device cpu \\
         --offload
 
-Every family runs resident; ``--offload`` streams the dense and vlm
-families and exits 2 on the others (moe, ssm, hybrid, encdec), as the
-reference's launcher does.  Encdec keeps the reference's stubbed frontend:
-its cross-attention caches ``enc_k``/``enc_v`` (``--prompt-len`` positions)
-are filled with 0.01, not computed by an encoder pass.  The printed
-``modelled`` step time is the P100 PCIe ledger model (``hw``
-``p100-pcie``), not a measurement.
+Every family runs resident: on a card through a
+:class:`repro_torch.models.DecodeGraph`, one CUDA graph of the step
+captured after one warm-up step and replayed every token, as the
+reference serves through its jitted step (the line's ``graph_capture`` is
+the capture's seconds); on the CPU (``--device cpu``) eagerly.
+``--offload`` streams the dense and vlm families, eagerly as the
+reference's streamer runs, and exits 2 on the others (moe, ssm, hybrid,
+encdec), as the reference's launcher does.  Encdec keeps the reference's
+stubbed frontend: its cross-attention caches ``enc_k``/``enc_v``
+(``--prompt-len`` positions) are filled with 0.01, not computed by an
+encoder pass.  The printed ``modelled`` step time is the P100 PCIe ledger
+model (``hw`` ``p100-pcie``), not a measurement.
 
 The ``stencil`` subcommand runs the multi-tenant
 :class:`repro_torch.serve.StencilServer`: N CloverLeaf 2D tenants submitted
@@ -127,7 +132,7 @@ def main(argv=None) -> int:
 
     from repro_torch.configs import get_config, get_reduced_config
     from repro_torch.core.device import resolve_device
-    from repro_torch.models import decode_step, init_cache, init_params
+    from repro_torch.models import DecodeGraph, decode_step, init_cache, init_params
     from repro_torch.models.offload import STREAMED_FAMILIES, StreamedDecoder
 
     try:
@@ -153,11 +158,13 @@ def main(argv=None) -> int:
         cache["enc_k"].fill_(0.01)
         cache["enc_v"].fill_(0.01)
 
-    streamer = None
+    streamer = graph = None
     if args.offload:
         streamer = StreamedDecoder(model, window=args.window)
         del model.blocks        # the layers now live in host memory only
         step = streamer.decode
+    elif dev.type == "cuda":
+        step = graph = DecodeGraph(model, cache)
     else:
         def step(c, t):
             return decode_step(model, c, t)
@@ -191,6 +198,9 @@ def main(argv=None) -> int:
                 f"decode={lat_ms:.1f}ms/tok "
                 f"({B * 1e3 / max(lat_ms, 1e-9):.0f} tok/s) "
                 f"sample={out[0, :8].tolist()}")
+        if graph is not None:
+            cap = graph.capture_s
+            line += f" graph_capture={'none' if cap is None else f'{cap:.3f}s'}"
         if streamer is not None:
             line += (f" offload[window={streamer.window} "
                      f"resident={streamer.device_resident_bytes() / 1e6:.1f}MB "

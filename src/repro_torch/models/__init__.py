@@ -6,8 +6,11 @@ layer-weight streaming for serving the dense and vlm families
 (``offload.StreamedDecoder``), and the training loss (``loss_fn``, with
 ``forward(remat=True)``; the optimizer and the step are in
 ``repro_torch.train``).  ``forward``, ``loss_fn`` and ``decode_step`` also
-run on a mesh (``mesh=``; the rules in ``repro_torch.distributed``)."""
+run on a mesh (``mesh=``; the rules in ``repro_torch.distributed``).  On a
+card, ``DecodeGraph`` (``graph.py``) replays the single-device decode step
+as one CUDA graph, the counterpart of the reference's jitted step."""
 from .config import ModelConfig
+from .graph import DecodeGraph
 from .transformer import (
     CacheFullError,
     Transformer,
@@ -18,5 +21,5 @@ from .transformer import (
     loss_fn,
 )
 
-__all__ = ["CacheFullError", "ModelConfig", "Transformer", "decode_step", "forward",
+__all__ = ["CacheFullError", "DecodeGraph", "ModelConfig", "Transformer", "decode_step", "forward",
            "init_cache", "init_params", "loss_fn"]

@@ -52,6 +52,7 @@ from .transformer import (
     decode_layer,
     layer_caches,
     lm_logits,
+    position,
 )
 
 # The families whose layers stream (the reference's streamer serves these).
@@ -235,12 +236,13 @@ class StreamedDecoder(LayerStreamer):
         batch = tokens.shape[0]
         self.upload_seconds(wait=False)
         h = self.resident["embed"][tokens][:, None, :]
+        pos = position(cur, h.device)
         self._fetch(0)
         for li in range(self.L):
             if li + 1 < self.L:
                 self._fetch(li + 1)          # prefetch the next layer (copy stream)
             blk = self._acquire(li)
-            h = decode_layer(blk, h, cfg, layer_caches(cfg, cache, li), cur)
+            h = decode_layer(blk, h, cfg, layer_caches(cfg, cache, li), pos)
             self._release(li)
         # speculative prefetch for the NEXT step's first layer: the next
         # chain is the same layer stack, so this always hits.

@@ -49,7 +49,11 @@ states) are written in place, and a step at ``len >= max_len`` raises
 ``CacheFullError`` before any of them is written, where the reference's
 ``lax.dynamic_update_slice`` (and encdec's position slice) clamps its start
 and silently overwrites the last slot (ROADMAP fault C4).  A pure ssm cache
-has no length, in either package: it decodes past ``max_len``.
+has no length, in either package: it decodes past ``max_len``.  The host
+``len`` is the cache's truth; the single-device step's device work
+(``decode_tokens``) reads it as a 0-d int64 tensor, as the reference reads
+its device scalar, so one CUDA graph serves every position
+(``models/graph.py``).
 
 Meshes (``mesh=`` of ``forward``, ``loss_fn`` and ``decode_step``): the
 parameters are DTensors on a ``DeviceMesh`` with named dims
@@ -959,44 +963,60 @@ def cache_position(cfg: ModelConfig, cache: Dict[str, Any]) -> int:
     return cur
 
 
+def position(cur: int, device) -> torch.Tensor:
+    """The host position ``cur`` as the 0-d int64 tensor the step reads."""
+    return torch.full((), cur, dtype=torch.int64, device=device)
+
+
+def position_table(model: "Transformer", cache: Dict[str, Any]) -> Optional[torch.Tensor]:
+    """encdec's sinusoidal positions (max_len, d) for every slot of ``cache``,
+    in the embedding's dtype and device, the table the reference slices at
+    ``len``; ``None`` for the other families."""
+    if model.cfg.family != "encdec":
+        return None
+    return _positions(cache["k"].shape[2], model.cfg, model.embed)
+
+
 def _decode_attn(a: Attention, x: torch.Tensor, cfg: ModelConfig, k_cache: torch.Tensor,
-                 v_cache: torch.Tensor, cur: int, posv: torch.Tensor,
+                 v_cache: torch.Tensor, pos: torch.Tensor,
                  use_rope: bool = True) -> torch.Tensor:
-    """GQA for one token of normed ``x``: its K/V written in place at ``cur``."""
+    """GQA for one token of normed ``x``: its K/V written in place at the
+    position ``pos`` (0-d int64 on the cache's device)."""
     q = torch.einsum("bsd,dhk->bshk", x, a.wq)
     k = torch.einsum("bsd,dhk->bshk", x, a.wk)
     v = torch.einsum("bsd,dhk->bshk", x, a.wv)
     if cfg.qkv_bias:
         q, k, v = q + a.bq, k + a.bk, v + a.bv
+    posv = pos.reshape(1)
     if use_rope:
         q = apply_rope(q, posv, cfg.rope_theta)
         k = apply_rope(k, posv, cfg.rope_theta)
-    k_cache[:, cur] = k[:, 0].to(k_cache.dtype)
-    v_cache[:, cur] = v[:, 0].to(v_cache.dtype)
-    o = decode_attention(q, k_cache, v_cache, cur + 1)
+    k_cache.index_copy_(1, posv, k.to(k_cache.dtype))
+    v_cache.index_copy_(1, posv, v.to(v_cache.dtype))
+    o = decode_attention(q, k_cache, v_cache, pos + 1)
     return torch.einsum("bshk,hkd->bsd", o, a.wo)
 
 
 def _decode_mla(a: MLAAttention, x: torch.Tensor, cfg: ModelConfig, ckv_cache: torch.Tensor,
-                kr_cache: torch.Tensor, cur: int, posv: torch.Tensor) -> torch.Tensor:
+                kr_cache: torch.Tensor, pos: torch.Tensor) -> torch.Tensor:
     """MLA for one token of normed ``x``: its latent and rope key written in
-    place at ``cur``, attention in the latent space."""
+    place at ``pos``, attention in the latent space."""
+    posv = pos.reshape(1)
     q_nope, q_rope, c_kv, k_rope = _mla_project(a, x, cfg, posv)
-    ckv_cache[:, cur] = c_kv[:, 0].to(ckv_cache.dtype)
-    kr_cache[:, cur] = k_rope[:, 0].to(kr_cache.dtype)
-    ctx = mla_decode_attention(a, q_nope, q_rope, ckv_cache, kr_cache, cur + 1, cfg)
+    ckv_cache.index_copy_(1, posv, c_kv.to(ckv_cache.dtype))
+    kr_cache.index_copy_(1, posv, k_rope.to(kr_cache.dtype))
+    ctx = mla_decode_attention(a, q_nope, q_rope, ckv_cache, kr_cache, pos + 1, cfg)
     return torch.einsum("bshk,hkd->bsd", ctx, a.wo)
 
 
 def decode_layer(blk: Block, h: torch.Tensor, cfg: ModelConfig,
-                 caches: Tuple[torch.Tensor, torch.Tensor], cur: int) -> torch.Tensor:
+                 caches: Tuple[torch.Tensor, torch.Tensor], pos: torch.Tensor) -> torch.Tensor:
     """One layer for one token: attention against the layer's ``caches``
-    (``layer_caches``; written in place at ``cur``), then the MLP or the
-    routed experts.  h: (B, 1, d)."""
+    (``layer_caches``; written in place at ``pos``, the 0-d position
+    tensor), then the MLP or the routed experts.  h: (B, 1, d)."""
     x = rms_norm(h, blk.ln1, cfg.rms_eps)
-    posv = torch.full((1,), cur, dtype=torch.int64, device=h.device)
     attend = _decode_mla if cfg.mla else _decode_attn
-    h = h + attend(blk.attn, x, cfg, *caches, cur, posv)
+    h = h + attend(blk.attn, x, cfg, *caches, pos)
     return _ffn_sublayer(blk, h, cfg)
 
 
@@ -1011,13 +1031,12 @@ def _decode_mamba(blk: MambaBlock, h: torch.Tensor, cfg: ModelConfig,
 
 
 def _decode_encdec_layer(blk: Block, h: torch.Tensor, cfg: ModelConfig,
-                         cache: Dict[str, Any], li: int, cur: int) -> torch.Tensor:
+                         cache: Dict[str, Any], li: int, pos: torch.Tensor) -> torch.Tensor:
     """One decoder layer for one token: causal self-attention without rope
-    (K/V written in place at ``cur``), cross-attention against the layer's
+    (K/V written in place at ``pos``), cross-attention against the layer's
     ``enc_k``/``enc_v`` as they are, then the MLP."""
-    posv = torch.full((1,), cur, dtype=torch.int64, device=h.device)
     x = rms_norm(h, blk.ln1, cfg.rms_eps)
-    h = h + _decode_attn(blk.attn, x, cfg, cache["k"][li], cache["v"][li], cur, posv,
+    h = h + _decode_attn(blk.attn, x, cfg, cache["k"][li], cache["v"][li], pos,
                          use_rope=False)
     a = blk.xattn
     q = torch.einsum("bsd,dhk->bshk", rms_norm(h, blk.ln_x, cfg.rms_eps), a.wq)
@@ -1052,10 +1071,11 @@ def _decode_attn_local(a, x: torch.Tensor, cfg: ModelConfig, kc: torch.Tensor,
     """``_decode_attn`` on a rank's shard of the cache: positions
     ``s0 .. s0 + len`` of it (the rank owning ``cur`` writes the new K/V),
     the softmax combined over ``groups``."""
-    posv = torch.full((1,), cur, dtype=torch.int64, device=x.device)
+    at = position(cur, x.device)
+    posv = at.reshape(1)
     if not groups:
         if write:
-            return _decode_attn(a, x, cfg, kc, vc, cur, posv, use_rope=use_rope)
+            return _decode_attn(a, x, cfg, kc, vc, at, use_rope=use_rope)
         q = torch.einsum("bsd,dhk->bshk", x, a.wq)
         o = decode_attention(q, kc, vc, n_valid)
         return torch.einsum("bshk,hkd->bsd", o, a.wo)
@@ -1082,9 +1102,10 @@ def _decode_attn_local(a, x: torch.Tensor, cfg: ModelConfig, kc: torch.Tensor,
 def _decode_mla_local(a, x: torch.Tensor, cfg: ModelConfig, ckv: torch.Tensor,
                       kr: torch.Tensor, cur: int, *, s0: int, groups) -> torch.Tensor:
     """``_decode_mla`` on a rank's shard of the latent cache."""
-    posv = torch.full((1,), cur, dtype=torch.int64, device=x.device)
+    at = position(cur, x.device)
+    posv = at.reshape(1)
     if not groups:
-        return _decode_mla(a, x, cfg, ckv, kr, cur, posv)
+        return _decode_mla(a, x, cfg, ckv, kr, at)
     q_nope, q_rope, c_kv, k_rope = _mla_project(a, x, cfg, posv)
     if s0 <= cur < s0 + ckv.shape[1]:
         ckv[:, cur - s0] = c_kv[:, 0].to(ckv.dtype)
@@ -1212,16 +1233,17 @@ def _decode_mamba_mesh(blk: MambaBlock, h, cfg: ModelConfig, cache: Dict[str, An
                                 extra_specs=(spmd.spec_of(ss), spmd.spec_of(cs)))
 
 
-def decode_step(model: Transformer, cache: Dict[str, Any],
-                tokens: torch.Tensor, *, mesh=None) -> Tuple[torch.Tensor, Dict[str, Any]]:
-    """One serving step: consume one token per sequence (``tokens`` (B,)),
-    return logits (B, vocab) and ``cache``, updated in place.  Raises
-    ``CacheFullError`` before any state is written when the attention
-    caches are full (``cache_position``).  ``mesh``: ``_decode_mesh``."""
-    if mesh is not None:
-        return _decode_mesh(model, cache, tokens, mesh)
+def decode_tokens(model: Transformer, cache: Dict[str, Any], tokens: torch.Tensor,
+                  pos: torch.Tensor, pe: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The device work of one single-device step: the logits (B, vocab) of
+    ``tokens`` (B,), the caches written in place at ``pos``, a 0-d int64
+    tensor equal to ``cache["len"]`` (the reference's device scalar);
+    ``pe`` is encdec's ``position_table``.  It reads the position only
+    through ``pos`` (``index_copy_``, ``index_select``, a length mask over
+    the whole cache) and never syncs with the host, so the same launches
+    serve every position: ``models/graph.py`` captures them once.  It
+    leaves ``len`` to the caller."""
     cfg = model.cfg
-    cur = cache_position(cfg, cache)
     h = model.embed[tokens][:, None, :]
     if cfg.family in ("ssm", "hybrid"):
         every = cfg.shared_attn_every
@@ -1230,15 +1252,30 @@ def decode_step(model: Transformer, cache: Dict[str, Any],
             if cfg.family == "hybrid" and idx % every == every - 1:
                 site = idx // every
                 h = decode_layer(model.shared_block, h, cfg,
-                                 (cache["sk"][site], cache["sv"][site]), cur)
+                                 (cache["sk"][site], cache["sv"][site]), pos)
     elif cfg.family == "encdec":
-        # the sinusoidal position at cur (the reference slices its table there)
-        h = h + _positions(cur + 1, cfg, h)[cur]
+        # the sinusoidal position at len (the reference slices its table there)
+        h = h + pe.index_select(0, pos.reshape(1))
         for li, blk in enumerate(model.blocks):
-            h = _decode_encdec_layer(blk, h, cfg, cache, li, cur)
+            h = _decode_encdec_layer(blk, h, cfg, cache, li, pos)
     else:
         for li, blk in enumerate(model.blocks):
-            h = decode_layer(blk, h, cfg, layer_caches(cfg, cache, li), cur)
-    logits = _head(model, h)[:, 0, :]
+            h = decode_layer(blk, h, cfg, layer_caches(cfg, cache, li), pos)
+    return _head(model, h)[:, 0, :]
+
+
+def decode_step(model: Transformer, cache: Dict[str, Any],
+                tokens: torch.Tensor, *, mesh=None) -> Tuple[torch.Tensor, Dict[str, Any]]:
+    """One serving step: consume one token per sequence (``tokens`` (B,)),
+    return logits (B, vocab) and ``cache``, updated in place.  Raises
+    ``CacheFullError`` before any state is written when the attention
+    caches are full (``cache_position``).  The device work is
+    ``decode_tokens`` at the host ``len``, run eagerly; ``DecodeGraph``
+    replays it.  ``mesh``: ``_decode_mesh``."""
+    if mesh is not None:
+        return _decode_mesh(model, cache, tokens, mesh)
+    cur = cache_position(model.cfg, cache)
+    logits = decode_tokens(model, cache, tokens, position(cur, model.embed.device),
+                           position_table(model, cache))
     cache["len"] = cur + 1
     return logits, cache

@@ -26,7 +26,7 @@ sys.path.insert(0, {root!r})
 import repro_torch, repro_torch.apps, repro_torch.core, repro_torch.kernels, repro_torch.obs
 import repro_torch.configs, repro_torch.models, repro_torch.launch.serve
 import repro_torch.models.offload, repro_torch.models.weights, repro_torch.models.moe
-import repro_torch.models.ssm
+import repro_torch.models.ssm, repro_torch.models.graph
 import repro_torch.train, repro_torch.train.checkpoint, repro_torch.train.data
 import repro_torch.launch.train
 import repro_torch.distributed.sharding, repro_torch.distributed.spmd
