@@ -17,6 +17,7 @@
     python3 chip_smoke.py --lm-mesh  # only phase 15, the LM mesh paths
     python3 chip_smoke.py --analysis # only phase 16, the step analysis (with
                                      # its own dry run of phase 15's cells)
+    python3 chip_smoke.py --examples # only phase 17, the port's examples
 
 Phases, each of which asserts (any failure exits non-zero):
 
@@ -256,8 +257,22 @@ Phases, each of which asserts (any failure exits non-zero):
    MemoryError at 3x), its modelled seconds labelled a model of that
    ``hw``, not card times.  No hand-written kernel launches.
 
+17. examples — the port's examples on the card, each through its
+   ``main`` in this interpreter, its output captured:
+   ``examples/quickstart_torch.py`` (heat at 512 x 256 on ``reference`` and
+   on ``ooc`` at a quarter of the problem), ``examples/serve_lm_torch.py``
+   (8-layer reduced Llama, resident through a ``DecodeGraph`` and streamed
+   through 3 slots), ``examples/train_lm_torch.py --preset 100m`` for 2
+   steps into a fresh checkpoint directory under ``build/examples``
+   (deleted at the end), then to step 10 on that directory.  Each must
+   return 0 and print its own check (``[OK]``, ``greedy outputs identical:
+   True``, ``improved``; the second training run also ``resumed from step
+   2``).  One record a run: its wall seconds, the card's ``nvidia-smi`` name
+   and power limit, what it printed and its hand-written kernel launches,
+   zeroed just before it (none: its paths run torch ops).
+
 Every line but the last two is a JSON record.  The line before the last
-JSON ``ok`` line lists every ported kernel (phases 7 to 16 launch none of
+JSON ``ok`` line lists every ported kernel (phases 7 to 17 launch none of
 them: the apps' loops and the models' layers are torch ops); the card's ``nvidia-smi`` name and power
 limit are printed on their own line before it.  The script
 imports nothing of JAX or of the JAX package.
@@ -268,6 +283,8 @@ import argparse
 import contextlib
 import gc
 import hashlib
+import importlib.util
+import io
 import json
 import os
 import shutil
@@ -3958,6 +3975,77 @@ def analysis_phase(smi: str, dryrun: Path = None, n: int = 8192) -> None:
          card=smi)
 
 
+# -- phase 17: the examples ----------------------------------------------------------
+
+EXAMPLES_DIR = Path(__file__).resolve().parent / "examples"
+EXAMPLES_BUILD = Path(__file__).resolve().parent / "build" / "examples"
+# train_lm_torch.py --preset 100m: a run, then its resume.  The resumed run
+# must show a falling loss from its own first step (the JAX example's check):
+# the 100m model reaches the synthetic stream's floor by step 5, so it resumes
+# at step 2 (resumed at 10 to 20, its loss did not fall on the card).
+EXAMPLE_TRAIN_STEPS = (2, 10)
+
+
+def _load_example(script: str):
+    spec = importlib.util.spec_from_file_location(f"example_{Path(script).stem}",
+                                                  EXAMPLES_DIR / script)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def example_run(smi: str, script: str, args, expect) -> dict:
+    """``main(args)`` of ``examples/<script>`` on the card (its default
+    device) in this interpreter, its standard output captured: it must
+    return 0, print every line of ``expect`` and launch no hand-written
+    kernel (the counts zeroed just before).  Returns its record: wall
+    seconds, kernel launches, what it printed."""
+    main = _load_example(script).main
+    what = " ".join([script] + list(args))
+    for ops_fn in (ops.stencil2d, ops.stencil3d, ops.chain2d):
+        ops_fn.launches = 0
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(out):
+            rc = main(list(args))
+        torch.cuda.synchronize()
+    except BaseException:
+        print(f"{what} failed; it printed:\n{out.getvalue()}", file=sys.stderr, flush=True)
+        raise
+    wall = time.perf_counter() - t0
+    launches = _kernel_launches()
+    text = out.getvalue()
+    check(rc == 0, f"{what} returned {rc}: {text[-2000:]}")
+    for want in expect:
+        check(want in text, f"{what} printed no {want!r}: {text[-2000:]}")
+    check(all(v == 0 for v in launches.values()),
+          f"{what} launches no hand-written kernel: {launches}")
+    return dict(phase="examples", script=script, args=list(args), wall_s=wall, smi=smi,
+                launches=launches, stdout=text.strip().splitlines())
+
+
+def examples_phase(smi: str) -> None:
+    """The port's examples on the card, each through its ``main`` in this
+    interpreter: the quickstart, serve_lm, and train_lm's ``--preset 100m``
+    into a fresh checkpoint directory, then train_lm further on that
+    directory, which must resume."""
+    t_phase = time.perf_counter()
+    first, total = EXAMPLE_TRAIN_STEPS
+    EXAMPLES_BUILD.mkdir(parents=True, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=EXAMPLES_BUILD) as ckpt:
+        train = ("--preset", "100m", "--ckpt-dir", ckpt, "--steps")
+        for run in (("quickstart_torch.py", (), ("out-of-core result == reference  [OK]",)),
+                    ("serve_lm_torch.py", (), ("greedy outputs identical: True",)),
+                    ("train_lm_torch.py", train + (str(first),), ("(improved)",)),
+                    ("train_lm_torch.py", train + (str(total),),
+                     (f"resumed from step {first}", "(improved)"))):
+            emit(**example_run(smi, *run))
+            gc.collect()
+            torch.cuda.empty_cache()
+    emit(phase="examples_done", seconds=time.perf_counter() - t_phase, card=smi)
+
+
 def device_activity(prof, top: int = 12):
     """Of a ``torch.profiler`` run: the seconds the card was busy (the union
     of its kernels' and copies' intervals), the seconds of work they did
@@ -4045,6 +4133,8 @@ def main() -> int:
     ap.add_argument("--analysis", action="store_true",
                     help="only phase 16, the step analysis, with its own dry run "
                          "(no result line)")
+    ap.add_argument("--examples", action="store_true",
+                    help="only phase 17, the port's examples (no result line)")
     ap.add_argument("--chunked", metavar="DIR",
                     help="only phase 8's chunked run, held against DIR/want.json "
                          "(the whole run starts this in a child process)")
@@ -4091,6 +4181,9 @@ def main() -> int:
     if args.analysis:
         analysis_phase(smi, n=napp2)
         return 0
+    if args.examples:
+        examples_phase(smi)
+        return 0
     build_phase()
     path = kernels_phase(n2d, n3d, reps)
     launches = kernel_path_phase(n2d, n3d)
@@ -4122,6 +4215,7 @@ def main() -> int:
     train_phase(smi)
     lm_mesh_phase(smi, keep_dryrun=True)
     analysis_phase(smi, dryrun=LM_MESH_DIR / "dryrun", n=napp2)
+    examples_phase(smi)
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": SOURCES[name][0],
          "replaces": SOURCES[name][1], "launches": launches[name],

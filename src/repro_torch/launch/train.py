@@ -47,6 +47,7 @@ import os
 import signal
 import sys
 import time
+from typing import Optional
 
 
 def state_tree(model, opt_state):
@@ -59,6 +60,24 @@ def state_tree(model, opt_state):
             "opt": {"mu": tensor_tree(model, opt_state["mu"]),
                     "nu": tensor_tree(model, opt_state["nu"]),
                     "step": opt_state["step"]}}
+
+
+def restore_state(ckpt_dir: str, model, opt_state) -> Optional[int]:
+    """Load the newest checkpoint in ``ckpt_dir`` (``state_tree``'s layout)
+    into ``model`` and its AdamW state, in place; returns its step, or
+    ``None`` where there is none."""
+    from repro_torch.models.weights import load_tree
+    from repro_torch.train.checkpoint import latest_checkpoint, restore_checkpoint
+
+    newest = latest_checkpoint(ckpt_dir)
+    if newest is None:
+        return None
+    _, state = restore_checkpoint(ckpt_dir, newest, state_tree(model, opt_state))
+    load_tree(model, state["params"])
+    load_tree(model, state["opt"]["mu"], values=opt_state["mu"])
+    load_tree(model, state["opt"]["nu"], values=opt_state["nu"])
+    opt_state["step"] = state["opt"]["step"].to(opt_state["step"].device)
+    return newest
 
 
 def main(argv=None) -> int:
@@ -94,10 +113,8 @@ def main(argv=None) -> int:
         batch_specs, distribute, mesh_axes, param_specs, shard_params)
     from repro_torch.launch.mesh import init_ranks, make_host_mesh
     from repro_torch.models import init_params
-    from repro_torch.models.weights import load_tree
     from repro_torch.train import AdamWConfig, adamw_init, make_train_step
-    from repro_torch.train.checkpoint import (
-        latest_checkpoint, restore_checkpoint, save_checkpoint)
+    from repro_torch.train.checkpoint import save_checkpoint
     from repro_torch.train.data import DataConfig, PrefetchIterator, TokenStream
 
     try:
@@ -142,14 +159,8 @@ def main(argv=None) -> int:
     start_step = 0
 
     if args.ckpt_dir:
-        newest = latest_checkpoint(args.ckpt_dir)
+        newest = restore_state(args.ckpt_dir, model, opt_state)
         if newest is not None:
-            _, state = restore_checkpoint(args.ckpt_dir, newest,
-                                          state_tree(model, opt_state))
-            load_tree(model, state["params"])
-            load_tree(model, state["opt"]["mu"], values=opt_state["mu"])
-            load_tree(model, state["opt"]["nu"], values=opt_state["nu"])
-            opt_state["step"] = state["opt"]["step"].to(dev)
             start_step = newest
             if not args.quiet:
                 print(f"resumed from step {newest}", flush=True)

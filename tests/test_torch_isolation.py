@@ -1,5 +1,6 @@
 """The port stands alone: ``repro_torch`` (its apps, its trainer, its
-mesh paths and its step analysis included) and ``chip_smoke.py`` import
+mesh paths and its step analysis included), ``chip_smoke.py`` and the
+port's examples (``examples/*_torch.py``) import
 neither JAX nor the JAX package, the package no
 ``torch.testing._internal``, and its entry points refuse to fall back to
 the CPU."""
@@ -16,6 +17,7 @@ torch = pytest.importorskip("torch")
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
 SMOKE = ROOT / "chip_smoke.py"
+EXAMPLES = sorted((ROOT / "examples").glob("*_torch.py"))
 
 _BLOCKED = """
 import sys
@@ -143,3 +145,38 @@ def test_chip_smoke_fails_without_a_card():
                          text=True, timeout=120, cwd=str(ROOT))
     assert out.returncode != 0
     assert '"ok"' not in out.stdout
+
+
+_EXAMPLE_BLOCKED = """
+import importlib.util
+import sys
+sys.modules["jax"] = None
+sys.modules["repro"] = None
+sys.path.insert(0, {src!r})
+spec = importlib.util.spec_from_file_location("example", {path!r})
+mod = importlib.util.module_from_spec(spec)
+spec.loader.exec_module(mod)
+assert callable(mod.main)
+assert "jax" not in [m.split(".")[0] for m in sys.modules if sys.modules[m] is not None]
+print("isolated")
+"""
+
+
+def test_every_example_has_a_port():
+    jax_examples = {p.stem for p in (ROOT / "examples").glob("*.py")} - {p.stem for p in EXAMPLES}
+    assert {p.stem.removesuffix("_torch") for p in EXAMPLES} == jax_examples
+    assert jax_examples == {"cloverleaf_outofcore", "quickstart", "serve_lm", "train_lm"}
+
+
+@pytest.mark.parametrize("path", EXAMPLES, ids=lambda p: str(p.relative_to(ROOT)))
+def test_example_imports_with_jax_and_repro_blocked(path):
+    """An example names neither package in any import statement, and loads
+    with both blocked."""
+    roots = set(_imported_roots(path))
+    assert not roots & {"jax", "jaxlib", "repro"}, roots
+    code = _EXAMPLE_BLOCKED.format(src=str(ROOT / "src"), path=str(path))
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=120, env=env, cwd=str(ROOT))
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().endswith("isolated")
