@@ -5,7 +5,11 @@
     python3 chip_smoke.py --small    # a short first run after a kernel edit
                                      # (every phase, the apps included, small)
     python3 chip_smoke.py --profile  # only the out-of-core path, traced and
-                                     # profiled: where its wall time goes
+                                     # profiled: where its wall time goes,
+                                     # and each tile's host enqueue and
+                                     # compute-stream window by its graph
+                                     # mode (heat, and CloverLeaf 2D at
+                                     # 4096^2 in 24 tiles)
     python3 chip_smoke.py --disk     # only phase 8 and the CloverLeaf 2D runs
                                      # of phase 7 it is held against
     python3 chip_smoke.py --mesh     # only phase 9 and the same two runs
@@ -55,16 +59,25 @@ Phases, each of which asserts (any failure exits non-zero):
    ``Session("ooc")`` with a device capacity of a third of the homes, then on
    ``"ooc-async"`` (bit-identical to ``ooc``), then on ``"cuda"`` (fields
    atol 1e-5, reductions rtol 1e-3).  Peak device memory must stay below the
-   homes' size.  Then one- and two-slot pools, whose slots are reused at
-   once, at a quarter of the size, against ``"cuda"``;
+   homes' size.  Each run's tile graphs (``core/tile_graph.py``: the tile
+   function as CUDA graphs) are printed: warm-ups, captures, replays,
+   capture seconds, pool bytes, beside the peak over the capacity.  Then
+   one- and two-slot pools, whose slots are reused at once, at a quarter of
+   the size, against ``"cuda"``;
 7. apps path — the paper's applications from ``repro_torch.apps`` at a third
    of their homes: CloverLeaf 2D at an 8192^2 interior (25 homes, 6.72 GB,
    pinned; capacity 2.24 GB; 4 steps, a field summary every 2) on ``ooc``,
    ``ooc-async`` (bit-identical to ``ooc``), ``resident`` (the in-core
    baseline) and ``reference``, all on the card, with one record per
-   Session chain (tiles, splits, wall, plan seconds, cache hits), the lanes'
-   bytes and rates, peak device memory (below the homes) and the paper's
-   resident-over-out-of-core ratio of wall per step; then CloverLeaf 3D and
+   Session chain (tiles, splits, wall, plan seconds, cache hits, its tile
+   graphs' warm-ups, captures, replays, capture seconds and pool bytes), the
+   lanes' bytes and rates, peak device memory (below the homes; the peak
+   reserved beside it) and the paper's resident-over-out-of-core ratio of
+   wall per step.  Every timestep chain of ``ooc`` and ``ooc-async`` must
+   replay at least one tile graph, and one more step of ``ooc``, run after
+   its records, fields and digests are taken, holds every replay of its
+   timestep chain against the eager tile function on cloned slots
+   (``torch.equal``, ``TileGraphs.check_replays``); then CloverLeaf 3D and
    OpenSBLI (two timesteps a chain) at 256^3, 2 steps on ``ooc`` against
    ``reference``.  Fields rtol 1e-4 / atol 1e-5, summaries rtol 1e-3;
 8. disk tier — CloverLeaf 2D at phase 7's size with its homes on disk,
@@ -306,6 +319,8 @@ sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
 from repro_torch.core import ReductionSpec, Session, datasets_from_numpy  # noqa: E402
 from repro_torch.core import Block  # noqa: E402
+from repro_torch.core.executor import GRAPH_FIELDS  # noqa: E402
+from repro_torch.core.tile_graph import TileGraphs  # noqa: E402
 from repro_torch.kernels import build, ops, ref  # noqa: E402
 from repro_torch.kernels import star2d_kernel, star3d_kernel  # noqa: E402
 from repro_torch.obs import compare as drift_compare  # noqa: E402
@@ -779,10 +794,12 @@ def ooc_phase(n: int, steps: int, rounds: int = 2) -> None:
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
         base = torch.cuda.memory_allocated()
+        base_reserved = torch.cuda.memory_reserved()
         sess = Session(backend, hw="p100-pcie", capacity_bytes=cap, cyclic=True,
                        prefetch=True)
         got, reds, walls = heat(sess, homes, steps, summary=True, rounds=rounds)
         peak = torch.cuda.max_memory_allocated() - base
+        peak_reserved = torch.cuda.max_memory_reserved() - base_reserved
         st = sess.transfer_stats()
         hist = sess.history
         busy = {lane: st["lanes"].get(lane, {}).get("service", {}).get("sum", 0.0)
@@ -797,8 +814,12 @@ def ooc_phase(n: int, steps: int, rounds: int = 2) -> None:
              d2h_GBps_copy=st["bytes_down_raw"] / st["copy_s"]["down"] / 1e9,
              lane_busy_s=busy, lane_copy_s=st["copy_s"],
              modelled_s=[h.modelled_s for h in hist],
-             peak_device_bytes=peak, capacity_bytes=cap, home_bytes=home_bytes,
-             reductions=reds)
+             graph=graph_record(st),
+             graph_per_chain=[{f: getattr(h, f) for f in GRAPH_FIELDS}
+                              for h in hist],
+             peak_device_bytes=peak, peak_over_capacity=peak / cap,
+             peak_reserved_bytes=peak_reserved, capacity_bytes=cap,
+             home_bytes=home_bytes, reductions=reds)
         check(all(h.num_tiles > 1 for h in hist), "ran out of core")
         check(peak < home_bytes, f"peak {peak} B not below the homes {home_bytes} B")
         results[backend] = (got, reds)
@@ -842,14 +863,20 @@ APP_FIELDS = {"cloverleaf2d": ("density0", "energy0", "xvel0", "yvel0"),
 
 
 def run_app(name: str, make_app, backend: str, steps: int, drive=None,
-            digests: bool = False, **kw) -> dict:
+            digests: bool = False, check_after=None, **kw) -> dict:
     """One app run on the card: fresh homes (RAM homes pinned before the
     run, as in phase 6; disk-backed homes are never pinned), peak device
     memory from a reset, and one record per chain the Session flushed — its
     loops, the executor chains it became (more than one where it split), its
     wall to a synchronise, its plan and ``debug`` verify seconds and cache
-    hits.  ``drive(app, sess) -> summary`` replaces ``app.run(sess, steps)``.
-    The Session is closed and the homes are dropped before this returns, so
+    hits, and its tile graphs' warm-ups, captures, replays, capture seconds
+    and pool bytes.  ``drive(app, sess) -> summary`` replaces ``app.run(sess,
+    steps)``.  ``check_after(app, sess)`` runs once the run's records,
+    fields and digests are taken (none of them counts it), with every
+    tile-graph replay held against the eager tile function on cloned slots
+    (``TileGraphs.check_replays``); its chains' records are
+    ``checked_chains``.  The Session is closed and the homes are dropped
+    before this returns, so
     their pins are released; the fields come back as copies, and with
     ``digests`` every dataset's whole padded home as a SHA-1 digest."""
     app = make_app()
@@ -869,6 +896,7 @@ def run_app(name: str, make_app, backend: str, steps: int, drive=None,
         windows.append((t0, time.perf_counter()))
         hist = sess.history[before:]
         chains.append({
+            "graph": {f: sum(getattr(h, f) for h in hist) for f in GRAPH_FIELDS},
             "loops": len(chain), "first": chain[0].name, "last": chain[-1].name,
             "wall_s": time.perf_counter() - t0,
             "tiles": [h.num_tiles for h in hist],
@@ -883,12 +911,14 @@ def run_app(name: str, make_app, backend: str, steps: int, drive=None,
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     base = torch.cuda.memory_allocated()
+    base_reserved = torch.cuda.memory_reserved()
     t0 = time.perf_counter()
     summary = (drive(app, sess) if drive is not None
                else app.run(sess, steps=steps))
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated() - base
+    peak_reserved = torch.cuda.max_memory_reserved() - base_reserved
     tracer = sess.trace()
     if tracer is not None:
         # The sharded executor's scatter / gather / halo-exchange spans (its
@@ -898,15 +928,23 @@ def run_app(name: str, make_app, backend: str, steps: int, drive=None,
             c["mesh_s"] = {k: sum(sp.t_end - sp.t_start for sp in spans
                                   if sp.name == k and a <= sp.t_start < b)
                            for k in MESH_SPANS}
-    sess.close()
     out = {"backend": backend, "summary": summary, "wall_s": wall,
-           "chains": chains, "peak_device_bytes": peak,
+           "chains": list(chains), "peak_device_bytes": peak,
+           "peak_reserved_bytes": peak_reserved,
            "home_bytes": app.total_bytes(),
            "stores": sorted({d.store.kind for d in app.dats.values()}),
            "transfer": sess.transfer_stats(),
            "fields": {n: app.d(n).interior().copy() for n in APP_FIELDS[name]}}
     if digests:
         out["digests"] = home_digests(app)
+    if check_after is not None:
+        TileGraphs.check_replays = True
+        try:
+            check_after(app, sess)
+        finally:
+            TileGraphs.check_replays = False
+        out["checked_chains"] = chains[len(out["chains"]):]
+    sess.close()
     del app, sess
     gc.collect()
     torch.cuda.empty_cache()
@@ -991,6 +1029,20 @@ def lane_record(run: dict) -> dict:
     }
 
 
+def graph_record(stats: dict) -> dict:
+    """A run's tile graphs (``transfer_stats()``'s ``graph_*``, its chains'
+    ``ChainStats`` summed): keys seen (each first tile a warm-up, eager),
+    captures, replays, the captures' host seconds, the device bytes they
+    reserved for the runs' pools, replays held against the eager tile
+    function."""
+    return {f: stats[f] for f in GRAPH_FIELDS}
+
+
+# Loops in CloverLeaf 2D's timestep chains (51, then the next step's dt
+# breaker or the field summary); the init and dt chains are shorter.
+TIMESTEP_LOOPS = 51
+
+
 def step_walls(run: dict, skip: int = 1) -> dict:
     """Wall of the steps (every chain after the first ``skip``: 1 passes
     over ``app.run``'s init chain, 0 takes a resumed run whole), with and
@@ -1062,7 +1114,9 @@ def apps_phase(n2d: int, n3d: int, steps2d: int = 4, steps3d: int = 2) -> dict:
     at = {"ooc": {}, "reference": {}}
     for backend, kw in (("ooc", dict(hw="p100-pcie", capacity_bytes=cap, prefetch=True,
                                      digests=True, drive=recording_at(
-                                         CUT_STEPS, steps2d, at["ooc"], digests=True))),
+                                         CUT_STEPS, steps2d, at["ooc"], digests=True),
+                                     check_after=lambda app, sess: app.run_steps(
+                                         sess, steps2d, steps2d + 1))),
                         ("ooc-async", dict(hw="p100-pcie", capacity_bytes=cap,
                                            prefetch=True)),
                         ("resident", dict(hw="p100-pcie")),
@@ -1084,6 +1138,9 @@ def apps_phase(n2d: int, n3d: int, steps2d: int = 4, steps3d: int = 2) -> dict:
                 executor_chains=sum(len(c["tiles"]) for c in chains),
                 chains_split=sum(len(c["tiles"]) > 1 for c in chains),
                 tiles_per_chain=[c["tiles"] for c in chains],
+                graph=graph_record(run["transfer"]),
+                graph_per_chain=[c["graph"] for c in chains],
+                peak_reserved_bytes=run["peak_reserved_bytes"],
                 plan_s=sum(c["plan_s"] for c in chains),
                 by_signature=chain_groups(chains),
                 steps_after_init=step_walls(run),
@@ -1094,6 +1151,22 @@ def apps_phase(n2d: int, n3d: int, steps2d: int = 4, steps3d: int = 2) -> dict:
         check(all(t > 1 for c in run["chains"] for t in c["tiles"]), "ran out of core")
         check(run["peak_device_bytes"] < homes,
               f"peak {run['peak_device_bytes']} B not below the homes {homes} B")
+        steps = [c for c in run["chains"] if c["loops"] >= TIMESTEP_LOOPS]
+        check(len(steps) >= steps2d and all(c["graph"]["graph_replays"] >= 1 for c in steps),
+              f"{run['backend']}: a tile-graph replay in every timestep chain: "
+              f"{[c['graph'] for c in steps]}")
+    # One more step of the ooc run, after its records, held every replay
+    # against the eager tile function on cloned slots (torch.equal; a
+    # difference raises there).
+    checked = [c for c in ooc["checked_chains"] if c["loops"] >= TIMESTEP_LOOPS]
+    check(len(checked) == 1 and all(c["graph"]["graph_checked"] == c["graph"]["graph_replays"]
+                                    for c in ooc["checked_chains"])
+          and checked[0]["graph"]["graph_replays"] > 0,
+          f"a timestep chain's replays all checked: "
+          f"{[c['graph'] for c in ooc['checked_chains']]}")
+    emit(phase="apps_graph_check", app="cloverleaf2d", backend="ooc", step=steps2d + 1,
+         loops=checked[0]["loops"], tiles=checked[0]["tiles"],
+         replays_equal_to_eager=True, wall_s=checked[0]["wall_s"], **checked[0]["graph"])
     check(all(torch.equal(torch.from_numpy(ooc["fields"][n]),
                           torch.from_numpy(asy["fields"][n]))
               for n in APP_FIELDS["cloverleaf2d"]) and ooc["summary"] == asy["summary"],
@@ -1129,6 +1202,7 @@ def apps_phase(n2d: int, n3d: int, steps2d: int = 4, steps3d: int = 2) -> dict:
              reference_wall_s=want["wall_s"], max_abs_err_vs_reference=err,
              peak_device_bytes=got["peak_device_bytes"],
              tiles_per_chain=[c["tiles"] for c in got["chains"]],
+             graph=graph_record(got["transfer"]),
              plan_s=sum(c["plan_s"] for c in got["chains"]),
              by_signature=chain_groups(got["chains"]), summary=got["summary"],
              **lane_record(got))
@@ -4069,11 +4143,42 @@ def device_activity(prof, top: int = 12):
             [[k, v[0], v[1]] for k, v in ranked[:top]])
 
 
-def profile_phase(n: int, steps: int) -> None:
+def tiles_by_graph_mode(spans, chain=None) -> dict:
+    """Per tile of ``chain`` (of every chain: None), by its tile-graph mode
+    (``warmup``: the key's first tile, eager; ``capture``: the capture and
+    its first replay; ``replay``): the host seconds its compute op took to enqueue (the
+    dispatch span's ``enqueue_s``) and its compute-stream window (the
+    device span's CUDA-event ``device_s``), each tile's and the median."""
+    from collections import defaultdict
+
+    out = defaultdict(lambda: {"enqueue_s": [], "window_s": []})
+    for sp in spans:
+        a = sp.args or {}
+        if (chain is not None and a.get("chain") != chain) or sp.name != "compute" \
+                or "graph" not in a:
+            continue
+        rec = out[a["graph"]]
+        if "device_s" in a:
+            rec["window_s"].append(a["device_s"])
+        else:
+            rec["enqueue_s"].append(a["enqueue_s"])
+    for rec in out.values():
+        rec["tiles"] = len(rec["enqueue_s"])
+        for k in ("enqueue_s", "window_s"):
+            rec[f"median_{k}"] = statistics.median(rec[k]) if rec[k] else None
+    return dict(out)
+
+
+def profile_phase(n: int, steps: int, n_app: int) -> None:
     """The out-of-core path once more per backend, with the span tracer on
     and torch.profiler around the replayed round's flush: host time by plan
-    op (the tracer's dispatch spans), lane spans, and device time by kernel
-    (CUPTI)."""
+    op (the tracer's dispatch spans), lane spans, device time by kernel
+    (CUPTI), and per tile of that flush its host enqueue seconds and
+    compute-stream window, warm-up (eager), capture and replayed tiles
+    apart.  Then the same per tile for CloverLeaf 2D at an n_app^2 interior
+    on ``ooc``, 2 steps, at a third of its homes, its tile count set to 24
+    so that graph keys repeat often (at phase 7's own count a key replays
+    once, at its capture)."""
     from collections import defaultdict
 
     from torch.profiler import ProfilerActivity, profile
@@ -4103,9 +4208,29 @@ def profile_phase(n: int, steps: int) -> None:
              wall_s=wall, host_s_by_span=dict(host),
              device_busy_s=busy_s, device_idle_share=1 - busy_s / wall,
              device_work_s=work_s, plan_time_s=sess.plan_stats()["plan_time_s"],
+             tiles_by_graph_mode=tiles_by_graph_mode(tracer.spans(), chain=1),
+             graph_per_chain=[{f: getattr(h, f) for f in GRAPH_FIELDS}
+                              for h in sess.history],
              top_device_ms=top,
              top_host_ms=[[e.key, e.self_cpu_time_total / 1e3, e.count]
                           for e in top_cpu[:12]])
+    from repro_torch.apps import CloverLeaf2D
+
+    app = CloverLeaf2D(n_app, n_app, summary_every=2)
+    for d in app.dats.values():
+        d.pin()
+    sess = Session("ooc", hw="p100-pcie", capacity_bytes=app.total_bytes() / 3,
+                   num_tiles=24, prefetch=True, trace=True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    app.run(sess, steps=2)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    emit(phase="profile_tiles", app="cloverleaf2d", backend="ooc", interior=[n_app, n_app],
+         steps=2, num_tiles=24, wall_s=wall, plan_time_s=sess.plan_stats()["plan_time_s"],
+         tiles_by_graph_mode=tiles_by_graph_mode(sess.trace().spans()),
+         graph_per_chain=[{f: getattr(h, f) for f in GRAPH_FIELDS} for h in sess.history])
+    sess.close()
 
 
 def main() -> int:
@@ -4152,7 +4277,7 @@ def main() -> int:
              app_2d=napp2, app_3d=napp3)
     smi = device_phase()
     if args.profile:
-        profile_phase(nooc, steps=4)
+        profile_phase(nooc, steps=4, n_app=napp2 // 2)
         return 0
     if args.disk:
         disk_phase(napp2, cl2d_baselines(napp2))

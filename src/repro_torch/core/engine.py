@@ -2,8 +2,27 @@
 
 Ported from ``src/repro/core/engine.py``.  The reference compiles one
 ``jax.jit`` function per tile signature and slices with
-``lax.dynamic_slice``; PyTorch runs eagerly, so the port has no compile
-cache and slices with plain indexing.  Two differences matter:
+``lax.dynamic_slice``, the tile's starts and slot origins entering as traced
+``int32`` scalars.  The port's tile function is eager torch ops; on a CUDA
+device :class:`~repro_torch.core.tile_graph.TileGraphs` captures it as CUDA
+graphs, the counterpart of that ``jax.jit``.  The function is split the same
+way as the reference's:
+
+* the host side — :meth:`TileEngine.signature` (the reference's compile-cache
+  key), :meth:`TileEngine.graph_key` (the signature plus every slot-local
+  offset and the identity of every tensor the tile runs on), the bounds
+  checks and the clone-of-a-view decisions;
+* the device part, :meth:`TileEngine.tile_fn`, which is what a graph
+  captures: slices at slot-local offsets (fixed by the key), and the tiled
+  dim's start, which ``coords()`` reads, as a 0-d ``int32`` device tensor
+  (the reference's traced scalar).  Nothing in it copies to the host.
+
+The bounds checks and clone decisions are host Python inside
+``tile_fn``: they run on every eager call and at a capture, and read nothing
+the graph key does not hold, so a replay is always a tile whose checks
+passed.  :meth:`TileEngine.run_tile` is the eager tile function.
+
+Two differences from the reference matter:
 
 * ``lax.dynamic_slice`` silently clamps an out-of-range start, so a wrong
   origin would read the wrong rows without a word.  The port checks every
@@ -20,7 +39,7 @@ for virtual position").
 """
 from __future__ import annotations
 
-from typing import Dict, List, Tuple
+from typing import Callable, Dict, List, Tuple
 
 import torch
 
@@ -47,32 +66,45 @@ def _box(arr: torch.Tensor, starts: List[int], sizes: Tuple[int, ...],
     return tuple(idx)
 
 
+# The tiled dim's start of loop ``k`` as a 0-d int32 tensor on the device:
+# ``start_t(k, start)``.
+StartTensor = Callable[[int, int], torch.Tensor]
+
+
 class _SliceAccessor(Accessor):
     """Accessor over slot tensors for one loop's iteration box."""
 
     def __init__(self, loop: ParallelLoop, box_sizes, td: int, start_td: int,
                  origins: Dict[str, int], slots: Dict[str, torch.Tensor],
-                 halos: Dict[str, Tuple[int, ...]], device: torch.device):
+                 halos: Dict[str, Tuple[int, ...]], device: torch.device,
+                 start_t: Callable[[], torch.Tensor]):
         self._loop = loop
         self._sizes = tuple(box_sizes)
         self.shape = tuple(box_sizes)
         self._td = td
         self._start_td = start_td          # box start in grid coords
+        self._start_t = start_t            # the same start, a 0-d device tensor
         self._origins = origins            # per-dat slot origin
         self._slots = slots
         self._halos = halos                # per-dat halo_lo tuple
         self.device = device
 
     def coords(self):
-        """Global grid coordinates over the box, broadcast to full box shape."""
+        """Global grid coordinates over the box, broadcast to full box shape.
+        The tiled dim's start comes from the 0-d start tensor, so a captured
+        graph reads each replay's own start."""
         lp = self._loop
         nd = lp.block.ndim
         device = self.device
         out = []
         for d in range(nd):
-            start = self._start_td if d == self._td else lp.range_[d][0]
-            ar = torch.arange(start, start + self._sizes[d], dtype=torch.int32,
-                              device=device)
+            if d == self._td:
+                ar = torch.arange(self._sizes[d], dtype=torch.int32,
+                                  device=device) + self._start_t()
+            else:
+                start = lp.range_[d][0]
+                ar = torch.arange(start, start + self._sizes[d], dtype=torch.int32,
+                                  device=device)
             shape = [1] * nd
             shape[d] = self._sizes[d]
             out.append(ar.reshape(shape).expand(self.shape))
@@ -95,6 +127,12 @@ class _SliceAccessor(Accessor):
                         f"loop {lp.name!r} read of {name!r} at {offset}")]
 
 
+def _fresh_start(device: torch.device) -> StartTensor:
+    """Start tensors for an eager call: a new one per ``coords()`` (a fill
+    launch, no host copy)."""
+    return lambda k, start: torch.full((), start, dtype=torch.int32, device=device)
+
+
 class TileEngine:
     """Runs one chain's loops tile by tile over slot tensors."""
 
@@ -105,14 +143,53 @@ class TileEngine:
             name: tuple(h[0] for h in dat.halo) for name, dat in chain.datasets.items()
         }
 
+    # -- the host side ---------------------------------------------------------
+    @staticmethod
+    def signature(tile: TilePlan) -> Tuple:
+        """The pattern of active loops and their box sizes: the reference's
+        compile-cache key (``TileEngine._signature`` there)."""
+        return tuple(None if box is None else tuple(b - a for a, b in box)
+                     for box in tile.loop_ranges)
+
+    def graph_key(self, tile: TilePlan, slots: Dict[str, torch.Tensor],
+                  origins: Dict[str, int]) -> Tuple:
+        """What a captured tile function is valid for: the signature, every
+        active loop's slot-local offsets and the identity of every tensor
+        passed in.  Loop ``k`` reads dataset ``n`` at ``start_k - origin_n``;
+        the starts relative to the first active loop's and that loop's start
+        relative to every origin fix all of them.  These, the signature, the
+        chain's ranges and halos and the tensors' shapes are everything the
+        bounds checks and the clone decisions read."""
+        starts = [box[self.td][0] for box in tile.loop_ranges if box is not None]
+        s0 = starts[0] if starts else 0
+        return (self.signature(tile),
+                tuple(s - s0 for s in starts),
+                tuple(sorted((n, s0 - o) for n, o in origins.items())),
+                tuple(sorted((n, id(t), t.data_ptr(), tuple(t.shape))
+                             for n, t in slots.items())))
+
+    # -- the tile function -----------------------------------------------------
     def run_tile(
         self,
         tile: TilePlan,
         slots: Dict[str, torch.Tensor],
         origins: Dict[str, int],
     ) -> Dict[str, torch.Tensor]:
-        """Run every active loop of ``tile`` in place on ``slots``; returns
-        the tile's reduction contributions (tensors on the slots' device)."""
+        """Run every active loop of ``tile`` in place on ``slots`` eagerly;
+        returns the tile's reduction contributions (tensors on the slots'
+        device)."""
+        device = next(iter(slots.values())).device
+        return self.tile_fn(tile, slots, origins, _fresh_start(device))
+
+    def tile_fn(
+        self,
+        tile: TilePlan,
+        slots: Dict[str, torch.Tensor],
+        origins: Dict[str, int],
+        start_t: StartTensor,
+    ) -> Dict[str, torch.Tensor]:
+        """The device part: :meth:`run_tile` with loop ``k``'s tiled-dim
+        start, where ``coords()`` reads it, from ``start_t(k, start)``."""
         chain, td, halos = self.chain, self.td, self.halos
         reds: Dict[str, torch.Tensor] = {}
         storages = {a.untyped_storage().data_ptr() for a in slots.values()}
@@ -124,7 +201,7 @@ class TileEngine:
             sizes = tuple(b - a for a, b in box)
             start = box[td][0]
             acc = _SliceAccessor(lp, sizes, td, start, origins, slots, halos,
-                                device)
+                                 device, lambda k=k, start=start: start_t(k, start))
             out = lp.kernel(acc)
             if not isinstance(out, dict):
                 raise TypeError(f"kernel of {lp.name!r} must return a dict")

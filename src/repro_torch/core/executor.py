@@ -153,6 +153,24 @@ class ChainStats:
     # executor).  Zero for unsharded chains.
     halo_messages: int = 0
     halo_bytes: int = 0
+    # -- the tile function as CUDA graphs (repro_torch.core.tile_graph) -------
+    # The counterpart of the reference's ``TileEngine.num_compiles``: per
+    # chain run on a CUDA device, the graph keys seen (each key's first tile
+    # runs eagerly, its warm-up), captures, replays, the captures' host
+    # seconds and the device bytes they reserved for the run's pool, and the
+    # replays held against the eager tile function (``check_replays``).
+    # Zero on the CPU and in sim mode, where every tile runs eagerly.
+    graph_warmups: int = 0
+    graph_captures: int = 0
+    graph_replays: int = 0
+    graph_capture_s: float = 0.0
+    graph_pool_bytes: int = 0
+    graph_checked: int = 0
+
+
+# ChainStats fields of the tile graphs (``TileGraphs.stats()``'s keys).
+GRAPH_FIELDS = ("graph_warmups", "graph_captures", "graph_replays",
+                "graph_capture_s", "graph_pool_bytes", "graph_checked")
 
 
 @dataclass
@@ -491,9 +509,11 @@ class OutOfCoreExecutor:
                 tracer=tr, trace_tag=self.trace_tag,
                 chain_index=chain_index)
         res = interp.run()
+        graph_stats = {}
         if not cfg.simulate_only:
             for lane, sec in interp.copy_s.items():
                 self.copy_s[lane] += sec
+            graph_stats = interp.graph_stats
         if tr.enabled:
             self.ledgers.append(res.ledger)
             tr.emit("chain", cat="chain", track=self.trace_tag + "chain",
@@ -540,6 +560,7 @@ class OutOfCoreExecutor:
                 disk_written=disk_written,
                 halo_messages=res.halo_messages,
                 halo_bytes=res.halo_bytes,
+                **graph_stats,
             )
         )
         return res.reductions
@@ -591,6 +612,8 @@ class OutOfCoreExecutor:
             "lanes": self.transfer.lane_stats(),
             # the lanes' copy time on the device alone (CUDA events)
             "copy_s": dict(self.copy_s),
+            # the tile function as CUDA graphs (ChainStats.graph_*, summed)
+            **{f: sum(getattr(c, f) for c in self.history) for f in GRAPH_FIELDS},
         }
 
 

@@ -13,7 +13,8 @@ bytes: slot arrays, staging tasks on the
 :class:`~repro_torch.core.transfer.TransferEngine` (coalesced per tile/direction),
 codec round-trips with achieved wire bytes patched into the ledger after
 drain, edge copies, pinned-array residency, speculative-prefetch capture and
-restore, and the :class:`~repro_torch.core.engine.TileEngine` tiles.
+restore, and the :class:`~repro_torch.core.engine.TileEngine` tiles (on
+CUDA as CUDA graphs, one set per run: :mod:`repro_torch.core.tile_graph`).
 
 Both interpreters execute the *same* instruction stream — the executor's
 old inline ``sim``/real branches are now one code path with data hooks.
@@ -26,6 +27,8 @@ brings are named where they are handled (search for "Hazard").
 """
 from __future__ import annotations
 
+import contextlib
+import time
 from dataclasses import dataclass, field
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
@@ -52,6 +55,7 @@ from .plan import (
 )
 from .dataset import torch_dtype
 from .store import RamStore
+from .tile_graph import TileGraphs
 from .tiling import Interval
 from .transfer import ResidencyManager, Slot
 from .transfer.engine import DISK, DOWN, UP
@@ -196,6 +200,9 @@ class LedgerInterpreter:
     # over (``_device_span_start``), the end after its dispatch.  None here.
     device_spans: Optional[List[Tuple]] = None
     _pending_start: Any = None
+    # Extra span args an op's data hook leaves for its spans (the tile's
+    # graph mode and host enqueue seconds, traced data-plane runs).
+    _span_note: Optional[Dict[str, Any]] = None
 
     def run(self) -> InterpResult:
         plan = self.plan
@@ -261,6 +268,9 @@ class LedgerInterpreter:
             args: Dict[str, Any] = {"chain": ci, "op": i}
             if tile is not None:
                 args["tile"] = tile
+            note, self._span_note = self._span_note, None
+            if note:
+                args.update(note)
             start, self._pending_start = self._pending_start, None
             if start is not None:
                 # Device-timed op: its span on the stream's track comes from
@@ -683,6 +693,10 @@ class DataPlaneInterpreter(LedgerInterpreter):
         # Seconds the lanes' copies took on the device, by CUDA events.
         self.copy_s: Dict[str, float] = {UP: 0.0, DOWN: 0.0}
         self._prefetch_armed = False
+        # The tile function as CUDA graphs for this run (CUDA only; made in
+        # ``begin``, released in ``finish``) and what they recorded.
+        self.graphs: Optional[TileGraphs] = None
+        self.graph_stats: Dict[str, float] = {}
 
     # -- streams and events ---------------------------------------------------
     def _record(self, timing: bool = False) -> Any:
@@ -778,6 +792,20 @@ class DataPlaneInterpreter(LedgerInterpreter):
                                            device=self.device)
             slot.arrays = arrays
         self.alloc_event = self._record()
+        if self.cuda:
+            self.graphs = TileGraphs(self.engine, self.device,
+                                     [a for slot in self.slots
+                                      for a in slot.arrays.values()])
+
+    def run(self) -> InterpResult:
+        try:
+            return super().run()
+        finally:
+            if self.graphs is not None and self.graphs.is_open:
+                # A run that failed: its replays end before the pool is freed.
+                with contextlib.suppress(Exception):
+                    self.compute_stream.synchronize()
+                self.graphs.release()
 
     def finish(self) -> None:
         self.tx.drain()
@@ -785,6 +813,8 @@ class DataPlaneInterpreter(LedgerInterpreter):
             # Compute-stream work (the last tiles, carries, reductions) must
             # land before reductions are read and slots are released.
             self.compute_stream.synchronize()
+            self.graph_stats = self.graphs.stats()
+            self.graphs.release()
         if self.device_spans:
             self._emit_device_spans()
         # Patch transfer events with the achieved wire bytes (codec output is
@@ -850,6 +880,8 @@ class DataPlaneInterpreter(LedgerInterpreter):
         hit = self.rm.pinned_lookup(dat)
         if hit is not None:
             arr, origin = hit
+            if self.graphs is not None:
+                self.graphs.hold(arr)
             self.pinned_arrays[name] = arr
             self.pinned_origins[name] = origin
             return 0, 0
@@ -867,6 +899,8 @@ class DataPlaneInterpreter(LedgerInterpreter):
             arr = torch.from_numpy(np.asarray(dec, dtype=dat.dtype)).to(
                 self.device, copy=True)
         self.rm.pinned_store(dat, arr, origin)
+        if self.graphs is not None:
+            self.graphs.hold(arr)
         self.pinned_arrays[name] = arr
         self.pinned_origins[name] = origin
         return raw, wire
@@ -1047,10 +1081,17 @@ class DataPlaneInterpreter(LedgerInterpreter):
         tile = self.sched.tiles[op.tile]
         run_arrays = {**slot.arrays, **self.pinned_arrays}
         run_origins = {**self.origins[op.tile], **self.pinned_origins}
-        # Compute is enqueued asynchronously on the compute stream; the
-        # event after it is what this tile's download and the slot's next
-        # upload wait on.
-        tile_reds = self.engine.run_tile(tile, run_arrays, run_origins)
+        # Compute is enqueued asynchronously on the compute stream (on CUDA
+        # as a graph warm-up, capture or replay); the event after it is what
+        # this tile's download and the slot's next upload wait on.
+        graphs = self.graphs
+        t0 = time.perf_counter()
+        tile_reds = (graphs if graphs is not None else self.engine.run_tile)(
+            tile, run_arrays, run_origins)
+        if self.tracer.enabled:
+            self._span_note = {
+                "graph": graphs.last_mode if graphs is not None else "eager",
+                "enqueue_s": time.perf_counter() - t0}
         ev = self._record()
         self.tile_event[op.tile] = ev
         self.slot_event[slot.index] = ev

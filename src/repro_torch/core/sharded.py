@@ -73,7 +73,7 @@ from .block import Block
 from .dataset import Dataset, torch_dtype
 from .dependency import loop_kernel_fingerprint, split_chain
 from .distributed import HaloExchangeStats, _band, exchange_halos
-from .executor import ChainStats, OOCConfig, OutOfCoreExecutor
+from .executor import GRAPH_FIELDS, ChainStats, OOCConfig, OutOfCoreExecutor
 from .loop import Accessor, Arg, ParallelLoop
 from .mesh import DeviceMesh, HaloSpec, MeshError, ShardGeometry, shard_geometries
 from ..obs.metrics import merge_histogram_snapshots
@@ -775,6 +775,7 @@ class ShardedOutOfCoreExecutor:
             disk_written=sum(c.disk_written for c in flat),
             halo_messages=sum(c.halo_messages for c in flat),
             halo_bytes=sum(c.halo_bytes for c in flat),
+            **{f: sum(getattr(c, f) for c in flat) for f in GRAPH_FIELDS},
         )
 
     # -- planning (Session.plan / explain / tune) ------------------------------
