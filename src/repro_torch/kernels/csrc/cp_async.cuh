@@ -35,6 +35,23 @@ __device__ __forceinline__ int align_offset(const T* p) {
   return static_cast<int>((reinterpret_cast<uintptr_t>(p) & 15) / sizeof(T));
 }
 
+// Stage the 16-byte chunk at ``src`` (16-byte aligned) into ``dst``: by
+// cp.async where ``inside`` (the chunk lies wholly in the tensor [lo, hi)),
+// else only its elements inside the tensor, one by one.
+template <typename T>
+__device__ __forceinline__ void stage16(unsigned char* dst, uintptr_t src, bool inside,
+                                        uintptr_t lo, uintptr_t hi) {
+  if (inside) {
+    cp_async16(dst, reinterpret_cast<const void*>(src));
+    return;
+  }
+  T* d = reinterpret_cast<T*>(dst);
+  for (int e = 0; e < static_cast<int>(16 / sizeof(T)); ++e) {
+    const uintptr_t a = src + e * sizeof(T);
+    if (a >= lo && a < hi) d[e] = *reinterpret_cast<const T*>(a);
+  }
+}
+
 // Stage chunk k of the span [p, p + count) of the tensor [x, x + n) into
 // dst + 16 k, where chunk 0 is the 16 bytes holding p.  Chunks that hold no
 // element of the span are skipped.
@@ -46,15 +63,7 @@ __device__ __forceinline__ void stage_chunk(unsigned char* dst, const T* p,
   const uintptr_t lo = reinterpret_cast<uintptr_t>(x);
   const uintptr_t hi = reinterpret_cast<uintptr_t>(x + n);
   if (src >= reinterpret_cast<uintptr_t>(p + count)) return;
-  if (src >= lo && src + 16 <= hi) {
-    cp_async16(dst + 16 * k, reinterpret_cast<const void*>(src));
-    return;
-  }
-  T* d = reinterpret_cast<T*>(dst + 16 * k);
-  for (int e = 0; e < static_cast<int>(16 / sizeof(T)); ++e) {
-    const uintptr_t a = src + e * sizeof(T);
-    if (a >= lo && a < hi) d[e] = *reinterpret_cast<const T*>(a);
-  }
+  stage16<T>(dst + 16 * k, src, src >= lo && src + 16 <= hi, lo, hi);
 }
 
 }  // namespace ring

@@ -184,6 +184,20 @@ def stencil2d_tiling(dtype: torch.dtype = torch.float32) -> Dict[str, int]:
     return _tiling("stencil2d", torch.empty((), dtype=dtype).element_size())
 
 
+def stencil3d_tiling(dtype: torch.dtype = torch.float32) -> Dict[str, int]:
+    """The CUDA kernel's tiling for an input of ``dtype``: the output
+    ``rows`` and ``cols`` of a block's tile in the xy plane, the z-``planes``
+    a block sweeps, ``threads`` per block and ``smem_bytes`` of shared
+    memory per block.  Builds the kernel."""
+    if dtype not in _DTYPES:
+        raise TypeError(f"stencil3d: dtype {dtype} not supported (float32, bfloat16)")
+    elem = torch.empty((), dtype=dtype).element_size()
+    tiling = _tiling("stencil3d", elem)
+    segment = build.load("stencil3d").stencil3d_segment
+    segment.argtypes, segment.restype = [_I], ctypes.c_int
+    return dict(tiling, planes=segment(elem))
+
+
 stencil2d.launches = 0
 stencil3d.launches = 0
 chain2d.launches = 0

@@ -110,6 +110,65 @@ def test_stencil3d_matches_jax(shape, dtype, launches):
                                atol=tol)
 
 
+# The edges of csrc/stencil3d.cu's tilings (ops.stencil3d_tiling; the same
+# cases as chip_smoke.stencil3d_edge_cases): fp32 tiles of 16 x 64 points
+# and 64-plane segments, bf16 tiles of 16 x 128 and 32-plane segments.
+# Widths one below, at and one above a tile's columns and a multiple of
+# them plus one; heights around a tile's rows and past three tiles; depths
+# around one segment; W + 2 at every residue mod 8; one-plane, one-row,
+# one-column and 1x1x1 interiors; then a ragged input of each tiling at
+# storage offsets 1 to 7 (the wrapper takes any contiguous view).
+STENCIL3D_EDGES = ([((3, 5, w), 0) for w in (63, 64, 65, 257, 127, 128, 129, 513)]
+                   + [((3, h, 37), 0) for h in (15, 16, 17, 49)]
+                   + [((d, 5, 37), 0) for d in (31, 32, 33, 63, 64, 65)]
+                   + [((3, 4, w), 0) for w in range(6, 14)]
+                   + [((1, 9, 70), 0), ((5, 1, 70), 0), ((5, 9, 1), 0), ((1, 1, 1), 0)]
+                   + [(s, off) for s in ((65, 17, 67), (33, 17, 131))
+                      for off in range(1, 8)])
+
+
+@pytest.mark.parametrize("shape, offset", STENCIL3D_EDGES)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_stencil3d_edges_match_jax(shape, offset, dtype, launches):
+    D, H, W = shape
+    rng = np.random.RandomState(D * 10000 + H * 100 + W + offset)
+    xj, xt, tol = _pair(rng.rand(D + 2, H + 2, W + 2), dtype)
+    xt = torch.cat([torch.zeros(offset, dtype=xt.dtype), xt.flatten()])[offset:]
+    xt = xt.view(D + 2, H + 2, W + 2)
+    assert xt.storage_offset() == offset
+    got = ops.stencil3d(xt, C3)
+    assert got.shape == (D, H, W) and got.dtype == xt.dtype
+    got = got.float().numpy()
+    np.testing.assert_allclose(got, np.asarray(jax_stencil3d(xj, C3), np.float32),
+                               atol=tol)
+    np.testing.assert_allclose(got, np.asarray(jax_ref3d(xj, C3), np.float32),
+                               atol=tol)
+
+
+def _stencil3d_tilings():
+    """{dtype: (rows, cols, planes)} of the tilings csrc/stencil3d.cu
+    builds: fp32's constants, then those of its ``namespace bf16``."""
+    text = (ROOT / "src/repro_torch/kernels/csrc/stencil3d.cu").read_text()
+    fp32, bf16 = text.split("\nnamespace bf16 {\n")
+    tilings = {}
+    for dtype, part in ((torch.float32, fp32), (torch.bfloat16, bf16)):
+        const = dict(re.findall(r"^constexpr int (k\w+) = (\d+);", part, re.M))
+        tilings[dtype] = (int(const["kTy"]), int(const["kTx"]), int(const["kSeg"]))
+    return tilings
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_stencil3d_edges_follow_the_kernel_tiling(dtype, monkeypatch):
+    """STENCIL3D_EDGES holds every edge case chip_smoke derives from the
+    kernel's tiling for ``dtype``, so the CPU tests stay at the edges of the
+    tiles the card runs."""
+    rows, cols, planes = _stencil3d_tilings()[dtype]
+    cs = _load("chip_smoke.py", "_chip_smoke")
+    monkeypatch.setattr(cs.ops, "stencil3d_tiling",
+                        lambda d: {"rows": rows, "cols": cols, "planes": planes})
+    assert set(cs.stencil3d_edge_cases(dtype)) <= set(STENCIL3D_EDGES)
+
+
 def test_wrapper_is_its_plain_version_on_cpu(launches):
     rng = np.random.RandomState(7)
     x2 = torch.from_numpy(rng.rand(20, 30).astype(np.float32))
