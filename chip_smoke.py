@@ -155,7 +155,7 @@ Phases, each of which asserts (any failure exits non-zero):
    device bytes the slots hold measured by ``memory_allocated`` after every
    step (at most 3 layer slices), uploaded bytes, H2D GB/s over copy-stream
    events and ms per step beside its link bound, the resident ms per token
-   and the modelled step (P100 PCIe model); then ``python -m
+   and the modelled step (the default ``hw``, ``H100``); then ``python -m
    repro_torch.launch.serve --arch llama3_2_1b --reduced`` on the card as
    a subprocess, and the launcher's ``main`` with ``--offload`` in this
    process, both exiting 0.  No hand-written kernel launches (counts
@@ -258,10 +258,13 @@ Phases, each of which asserts (any failure exits non-zero):
    the card: (a) the card's own constants beside the data sheet's
    (CUDA-event medians of 10: a 4 GiB device-to-device ``copy_``, an
    8192^3 ``torch.matmul`` in bf16 and in fp32 with TF32 off, pinned 1 GiB
-   H2D and D2H copies); (b) ``OpCostLog`` over one training step of Llama
-   3.2 1B at its published config (phase 14's 2 x 4,096 tokens in two
-   microbatches, remat on) and one decode step (phase 11's batch 4 after
-   32 prompt tokens), each from the same state as a step without it
+   H2D and D2H copies; by the host clock, a 1 GiB copy between two pinned
+   host buffers), then each field of the port's default ``hw``, ``H100``,
+   beside the rate it was taken from (gate: each ratio in [0.5, 2]); (b)
+   ``OpCostLog`` over one training step of Llama 3.2 1B at its published
+   config (phase 14's 2 x 4,096 tokens in two microbatches, remat on) and
+   one decode step (phase 11's batch 4 after 32 prompt tokens), each from
+   the same state as a step without it
    (results ``torch.equal``), printed with ``roofline_terms`` on the data
    sheet's constants and on (a)'s and the step's ms timed without the
    mode; gates: dot FLOPs equal to ``FlopCounterMode``'s and to the same
@@ -442,6 +445,18 @@ def time_ms(fn, reps: int, warmup: int = 3) -> float:
         b.record()
         b.synchronize()
         times.append(a.elapsed_time(b))
+    return statistics.median(times)
+
+
+def host_ms(fn, reps: int, warmup: int = 3) -> float:
+    """Median milliseconds of ``fn``, a host-side call, by the host clock."""
+    for _ in range(warmup):
+        fn()
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t0) * 1e3)
     return statistics.median(times)
 
 
@@ -861,8 +876,7 @@ def ooc_phase(n: int, steps: int, rounds: int = 2) -> None:
         torch.cuda.reset_peak_memory_stats()
         base = torch.cuda.memory_allocated()
         base_reserved = torch.cuda.memory_reserved()
-        sess = Session(backend, hw="p100-pcie", capacity_bytes=cap, cyclic=True,
-                       prefetch=True)
+        sess = Session(backend, capacity_bytes=cap, cyclic=True, prefetch=True)
         got, reds, walls = heat(sess, homes, steps, summary=True, rounds=rounds)
         peak = torch.cuda.max_memory_allocated() - base
         peak_reserved = torch.cuda.max_memory_reserved() - base_reserved
@@ -1178,14 +1192,13 @@ def apps_phase(n2d: int, n3d: int, steps2d: int = 4, steps3d: int = 2) -> dict:
     cap = homes / 3
     runs = {}
     at = {"ooc": {}, "reference": {}}
-    for backend, kw in (("ooc", dict(hw="p100-pcie", capacity_bytes=cap, prefetch=True,
+    for backend, kw in (("ooc", dict(capacity_bytes=cap, prefetch=True,
                                      digests=True, drive=recording_at(
                                          CUT_STEPS, steps2d, at["ooc"], digests=True),
                                      check_after=lambda app, sess: app.run_steps(
                                          sess, steps2d, steps2d + 1))),
-                        ("ooc-async", dict(hw="p100-pcie", capacity_bytes=cap,
-                                           prefetch=True)),
-                        ("resident", dict(hw="p100-pcie")),
+                        ("ooc-async", dict(capacity_bytes=cap, prefetch=True)),
+                        ("resident", dict()),
                         ("reference", dict(drive=recording_at(CUT_STEPS, steps2d,
                                                               at["reference"])))):
         run = runs[backend] = run_app("cloverleaf2d", cl2d, backend, steps2d, **kw)
@@ -1257,8 +1270,8 @@ def apps_phase(n2d: int, n3d: int, steps2d: int = 4, steps3d: int = 2) -> dict:
                         lambda: CloverLeaf3D(n3d, n3d, n3d, summary_every=steps3d)),
                        ("opensbli", lambda: OpenSBLI(n3d, chain_steps=2))):
         homes3 = len(make().dats) * (n3d + 4) ** 3 * 4
-        got = run_app(name, make, "ooc", steps3d, hw="p100-pcie",
-                      capacity_bytes=homes3 / 3, prefetch=True)
+        got = run_app(name, make, "ooc", steps3d, capacity_bytes=homes3 / 3,
+                      prefetch=True)
         want = run_app(name, make, "reference", steps3d)
         err = app_check(name, got, want, "ooc vs reference")
         check(got["peak_device_bytes"] < homes3,
@@ -1293,7 +1306,7 @@ def cl2d_baselines(n: int, steps: int = 4) -> dict:
     at = {"ooc": {}, "reference": {}}
     out = {"ooc": run_app("cloverleaf2d", make, "ooc", steps, digests=True,
                           drive=recording_at(CUT_STEPS, steps, at["ooc"], digests=True),
-                          hw="p100-pcie", capacity_bytes=homes / 3, prefetch=True),
+                          capacity_bytes=homes / 3, prefetch=True),
            "reference": run_app("cloverleaf2d", make, "reference", steps,
                                 drive=recording_at(CUT_STEPS, steps, at["reference"])),
            f"at{CUT_STEPS}": at}
@@ -1357,8 +1370,8 @@ def disk_phase(n: int, baseline: dict, steps: int = 4, chunked_apart: bool = Fal
             "summary": ooc["summary"]}
     child = ChunkedRun(n, want, steps) if chunked_apart else None
     spill = Path(tempfile.mkdtemp(prefix="phase8-", dir=SPILL_ROOT))
-    kw = dict(hw="p100-pcie", capacity_bytes=homes / 3, prefetch=True,
-              host_capacity=homes / 3, debug=True)
+    kw = dict(capacity_bytes=homes / 3, prefetch=True, host_capacity=homes / 3,
+              debug=True)
     try:
         ckpt = str(spill / "step2.npz")
         state = {}
@@ -1450,7 +1463,7 @@ def chunked_run(n: int, want: dict, steps: int, spill: Path) -> None:
     homes = 25 * (n + 4) ** 2 * 4
     ch = run_app("cloverleaf2d", lambda: CloverLeaf2D(n, n, summary_every=2, store=StoreConfig(
                      kind="chunked", directory=str(spill / "chunked"))),
-                 "ooc", steps, digests=True, hw="p100-pcie", capacity_bytes=homes / 3,
+                 "ooc", steps, digests=True, capacity_bytes=homes / 3,
                  prefetch=True, host_capacity=homes / 3, debug=True)
     check(ch["stores"] == ["chunked"], f"the chunked run's homes were {ch['stores']}")
     on_disk = sum(f.stat().st_size for f in (spill / "chunked").rglob("*") if f.is_file())
@@ -1591,7 +1604,7 @@ def mesh_phase(n: int, baseline: dict, smi: str, steps: int = CUT_STEPS,
     homes = 25 * (n + 4) ** 2 * 4
     cap = homes / 3 / 4
     make = lambda: CloverLeaf2D(n, n, summary_every=2)  # noqa: E731
-    kw = dict(hw="p100-pcie", capacity_bytes=cap, prefetch=True, trace=True)
+    kw = dict(capacity_bytes=cap, prefetch=True, trace=True)
 
     def sharded(info):
         def drive(app, sess):
@@ -1725,8 +1738,8 @@ def serve_tenants(n: int, mesh: str, cap: float, steps: int, spill: Path,
     # Auto-preemption is off: with these priorities on two lanes it flags a
     # running priority-0 tenant whenever a priority-1 one waits (7 times in
     # a rehearsal on the CPU), each a checkpoint of all of its homes.
-    server = StencilServer(mesh, device="cuda", policy="sjf", hw="p100-pcie",
-                           capacity_bytes=cap, prefetch=True, trace=True,
+    server = StencilServer(mesh, device="cuda", policy="sjf", capacity_bytes=cap,
+                           prefetch=True, trace=True,
                            spill_dir=str(spill), auto_preempt=False)
     try:
         sessions = [server.session(f"t{i}", priority=p)
@@ -2295,7 +2308,7 @@ def model_phase(smi: str, batch: int = 4, prompt_len: int = 32, gen_tokens: int 
              ms_per_step_median=stream_ms, ms_per_step=run["ms"],
              link_bound_ms=per_step / h2d * 1e3, bytes_per_step=per_step,
              resident_ms_per_token=res_ms, modelled_step_ms=st.modelled_step_s * 1e3,
-             modelled_hw="modelled, p100-pcie", wall_s=run["wall_s"],
+             modelled_hw=f"modelled, {streamer.hw.name}", wall_s=run["wall_s"],
              logits_equal=True, tokens_equal=True, card=smi)
         del streamer, graphed, model, cache
         gc.collect()
@@ -3746,9 +3759,14 @@ def card_constants(smi: str):
     medians of ANALYSIS_REPS: HBM bytes/s of a device-to-device ``copy_``
     (read and write counted), the FLOP/s of ``torch.matmul`` in bf16 and in
     fp32 (TF32 off; the card measured, not the port), and pinned H2D and D2H
-    bytes/s.  Returns the measured ``Hardware`` (the collective links stay
-    the data sheet's: one card measures none)."""
+    bytes/s; and, by the host clock, a ``copy_`` between two pinned host
+    buffers (read and write counted).  Then each field of the port's default
+    ``hw``, ``H100``, beside the rate it was taken from, measured here:
+    every ratio lies in [0.5, 2] (a slip of units, GiB for GB or a missing
+    read-plus-write factor, not drift).  Returns the measured ``Hardware``
+    (the collective links stay the data sheet's: one card measures none)."""
     from repro_torch.analysis.roofline import PCIE_BW, Hardware
+    from repro_torch.core import H100
 
     src = torch.empty(ANALYSIS_COPY_ELEMS, device="cuda")
     dst = torch.empty_like(src)
@@ -3773,7 +3791,10 @@ def card_constants(smi: str):
     dev = torch.empty(ANALYSIS_LINK_BYTES, dtype=torch.uint8, device="cuda")
     h2d_ms = time_ms(lambda: dev.copy_(host, non_blocking=True), ANALYSIS_REPS)
     d2h_ms = time_ms(lambda: host.copy_(dev, non_blocking=True), ANALYSIS_REPS)
-    del host, dev
+    del dev
+    other = torch.empty(ANALYSIS_LINK_BYTES, dtype=torch.uint8, pin_memory=True)
+    h2h_ms = host_ms(lambda: other.copy_(host), ANALYSIS_REPS)
+    del host, other
     release_pinned_cache()
     measured = {
         "hbm_copy": (copy_ms, hbm, H100_SXM.hbm_bw),
@@ -3789,6 +3810,21 @@ def card_constants(smi: str):
             for k, (ms, rate, sheet) in measured.items()},
          units="rate: bytes/s (copies, read and write for hbm_copy) or FLOP/s (matmul)",
          card=smi)
+    h2h = 2 * ANALYSIS_LINK_BYTES / (h2h_ms / 1e3)
+    taken = {"fast_capacity": ("mem_get_info total", torch.cuda.mem_get_info()[1]),
+             "fast_bw": ("hbm_copy", hbm), "dd_bw": ("hbm_copy", hbm),
+             "slow_bw": ("h2h_pinned", h2h),
+             "up_bw": ("h2d_pinned", measured["h2d_pinned"][1]),
+             "down_bw": ("d2h_pinned", measured["d2h_pinned"][1]),
+             "flops": ("matmul_bf16", measured["matmul_bf16"][1])}
+    fields = {f: {"preset": getattr(H100, f), "measured_by": what, "measured": got,
+                  "ratio": getattr(H100, f) / got}
+              for f, (what, got) in taken.items()}
+    emit(phase="analysis_preset", preset=H100.name, h2h_pinned={"ms": h2h_ms, "rate": h2h},
+         fields=fields, units="bytes, bytes/s or FLOP/s; ratio: preset over measured; "
+         "h2h_pinned by the host clock, read and write counted", card=smi)
+    check(all(0.5 <= r["ratio"] <= 2 for r in fields.values()),
+          f"every field of {H100.name} within a factor of 2 of this card's rate: {fields}")
     return Hardware(name="h100 (measured here)", peak_flops=measured["matmul_bf16"][1],
                     hbm_bw=hbm, ici_bw=H100_SXM.ici_bw, dcn_bw=H100_SXM.dcn_bw)
 
@@ -4024,12 +4060,12 @@ def analysis_cachesim(smi: str, n: int, device: str = "cuda") -> None:
     ``reference`` Session that never flushes), at phase 7's capacity (a
     third of the homes) and tile count (``choose_num_tiles`` at that
     capacity with 3 slots, as the ``ooc`` executor chooses): every mode,
-    untiled and tiled, on the port's default ``hw`` (P100_PCIE) with
+    untiled and tiled, on the port's default ``hw`` (``H100``) with
     ``fast_capacity`` set to the capacity.  The modelled seconds are a model
     of that ``hw``'s figures, not card times.  Gate: ``flat_fast`` raises
     MemoryError (the homes are 3x the capacity), every other mode runs."""
     from repro_torch.apps import CloverLeaf2D
-    from repro_torch.core import P100_PCIE, Session, analyze_chain
+    from repro_torch.core import H100, Session, analyze_chain
     from repro_torch.core.cachesim import simulate_chain
     from repro_torch.core.tiling import choose_num_tiles
 
@@ -4047,7 +4083,7 @@ def analysis_cachesim(smi: str, n: int, device: str = "cuda") -> None:
     t0 = time.perf_counter()
     tiles = choose_num_tiles(analyze_chain(loops), cap, num_slots=3)
     choose_s = time.perf_counter() - t0
-    hw = P100_PCIE.with_(fast_capacity=cap)
+    hw = H100.with_(fast_capacity=cap)
     results = {}
     for mode in ("flat_fast", "flat_slow", "cache", "um", "um_prefetch"):
         for tiled in (False, True):
@@ -4253,8 +4289,8 @@ def profile_phase(n: int, steps: int, n_app: int) -> None:
     cap = sum(a.nbytes for a in homes.values()) / 3
     # Round 0 plans the chain; round 1 replays it and is the one profiled.
     for backend in ("ooc", "ooc-async"):
-        sess = Session(backend, hw="p100-pcie", capacity_bytes=cap, cyclic=True,
-                       prefetch=True, trace=True)
+        sess = Session(backend, capacity_bytes=cap, cyclic=True, prefetch=True,
+                       trace=True)
         tracer = sess.trace()
         prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
         _, _, (_, wall) = heat(sess, homes, steps, summary=True, rounds=2,
@@ -4285,7 +4321,7 @@ def profile_phase(n: int, steps: int, n_app: int) -> None:
     app = CloverLeaf2D(n_app, n_app, summary_every=2)
     for d in app.dats.values():
         d.pin()
-    sess = Session("ooc", hw="p100-pcie", capacity_bytes=app.total_bytes() / 3,
+    sess = Session("ooc", capacity_bytes=app.total_bytes() / 3,
                    num_tiles=24, prefetch=True, trace=True)
     torch.cuda.synchronize()
     t0 = time.perf_counter()

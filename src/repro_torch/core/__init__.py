@@ -103,6 +103,7 @@ from .loop import (
 )
 from .memory import (
     GB,
+    H100,
     KNL_7210,
     P100_NVLINK,
     P100_PCIE,
@@ -137,7 +138,7 @@ __all__ = [
     "ReferenceBackend", "KernelBackend",
     "AccessMode", "Accessor", "Arg",
     "ParallelLoop", "ReductionSpec", "READ", "WRITE", "RW", "INC",
-    "GB", "KNL_7210", "P100_NVLINK", "P100_PCIE", "PRESETS",
+    "GB", "H100", "KNL_7210", "P100_NVLINK", "P100_PCIE", "PRESETS",
     "HardwareModel", "TransferLedger", "Stencil", "box_stencil",
     "offset_stencil", "point_stencil", "star_stencil", "TileSchedule",
     "choose_num_tiles", "make_tile_schedule",

@@ -58,7 +58,7 @@ from .device import resolve_device
 from .engine import TileEngine
 from .interp import DataPlaneInterpreter, LedgerInterpreter, SpecState
 from .loop import ParallelLoop
-from .memory import P100_PCIE, HardwareModel, TransferLedger
+from .memory import H100, HardwareModel, TransferLedger
 from .plan import Plan, build_plan
 from .tiling import TileSchedule, choose_num_tiles, make_tile_schedule
 from .transfer import ResidencyManager, TransferEngine, resolve_codecs
@@ -68,7 +68,7 @@ from ..obs.tracer import AnyTracer, as_tracer
 
 @dataclass
 class OOCConfig:
-    hw: HardwareModel = P100_PCIE
+    hw: HardwareModel = H100
     capacity_bytes: Optional[float] = None   # default: hw.fast_capacity
     num_slots: int = 3
     num_tiles: Optional[int] = None          # default: smallest that fits
@@ -626,7 +626,7 @@ class ResidentExecutor:
     per-chain traffic.
     """
 
-    def __init__(self, hw: HardwareModel = P100_PCIE,
+    def __init__(self, hw: HardwareModel = H100,
                  capacity_bytes: Optional[float] = None, device: str = "cuda"):
         self.hw = hw
         self.capacity = capacity_bytes if capacity_bytes is not None else hw.fast_capacity

@@ -9,10 +9,11 @@ serialisation — exactly how CUDA streams compose.
 Presets carry the paper's measured numbers (STREAM/device copy bandwidths,
 PCIe/NVLink throughputs as achieved, not peak).
 
-Copied from ``src/repro/core/memory.py`` without the reference's TPU preset,
-which is not a figure for this port.  The port's default model is
-``P100_PCIE`` until an H100 preset is measured on the card.  It imports
-neither JAX nor ``repro``.
+Copied from ``src/repro/core/memory.py``.  The reference models its own
+target, a TPU v5e, as ``TPU_V5E``; the port's own target is the H100, and
+its preset ``H100`` (figures the card achieved in ``chip_smoke.py`` phase
+16(a)) is the default ``hw`` where the reference's is ``TPU_V5E``.  It
+imports neither JAX nor ``repro``.
 """
 from __future__ import annotations
 
@@ -74,7 +75,21 @@ P100_PCIE = HardwareModel(
     flops=10e12,
 )
 P100_NVLINK = P100_PCIE.with_(name="p100-nvlink", up_bw=30 * GB, down_bw=30 * GB)
-PRESETS = {m.name: m for m in (KNL_7210, P100_PCIE, P100_NVLINK)}
+# The port's own target: rates achieved on an NVIDIA H100 80GB HBM3 at a
+# 700.00 W power limit, CUDA-event medians of 10 (the host copy by the host
+# clock) in ``chip_smoke.py`` phase 16(a) (``card_constants``), which prints
+# each field beside its run's rate and fails if a ratio leaves [0.5, 2].
+H100 = HardwareModel(
+    name="h100-sxm",
+    fast_capacity=80 * GB,  # the 80 GB part, written as P100_PCIE writes 16 GB
+    fast_bw=3000 * GB,      # 4 GiB device-to-device copy_, read and write counted
+    slow_bw=33.4 * GB,      # 1 GiB copy_ between pinned host buffers, read and write
+    up_bw=52.7 * GB,        # pinned 1 GiB host-to-device copy_
+    down_bw=55.1 * GB,      # pinned 1 GiB device-to-host copy_
+    dd_bw=3000 * GB,        # the device-to-device copy_, as fast_bw
+    flops=756e12,           # bf16 8192^3 torch.matmul (TPU_V5E's flops are bf16 too)
+)
+PRESETS = {m.name: m for m in (KNL_7210, P100_PCIE, P100_NVLINK, H100)}
 
 
 @dataclass

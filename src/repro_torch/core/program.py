@@ -49,7 +49,7 @@ from .dataset import Dataset, torch_dtype
 from .dependency import kernel_fingerprint, split_chain
 from .loop import AccessMode, Accessor, Arg, Kernel, ParallelLoop, ReductionSpec
 from .device import resolve_device
-from .memory import P100_PCIE, PRESETS, HardwareModel
+from .memory import H100, PRESETS, HardwareModel
 from .stencil import Stencil, offset_stencil, point_stencil
 
 
@@ -72,14 +72,15 @@ class ExecutionConfig:
     """One config object selecting and parameterising a backend.
 
     ``hw`` accepts a :class:`HardwareModel` or a preset name from
-    ``repro_torch.core.memory.PRESETS`` (``"p100-pcie"``, ``"p100-nvlink"``,
-    ``"knl-7210"``).  ``device`` is where slots and kernel inputs live:
-    ``"cuda"`` (the default) raises on a machine without CUDA — there is no
-    silent fallback — and ``"cpu"`` must be passed explicitly.
+    ``repro_torch.core.memory.PRESETS`` (``"h100-sxm"``, the default,
+    ``"p100-pcie"``, ``"p100-nvlink"``, ``"knl-7210"``).  ``device`` is
+    where slots and kernel inputs live: ``"cuda"`` (the default) raises on
+    a machine without CUDA — there is no silent fallback — and ``"cpu"``
+    must be passed explicitly.
     """
 
     backend: str = "ooc"
-    hw: Union[HardwareModel, str] = P100_PCIE
+    hw: Union[HardwareModel, str] = H100
     capacity_bytes: Optional[float] = None   # default: hw.fast_capacity
     num_slots: int = 3
     num_tiles: Optional[int] = None          # default: smallest that fits

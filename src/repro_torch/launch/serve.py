@@ -21,8 +21,8 @@ reference's streamer runs, and exits 2 on the others (moe, ssm, hybrid,
 encdec), as the reference's launcher does.  Encdec keeps the reference's
 stubbed frontend: its cross-attention caches ``enc_k``/``enc_v``
 (``--prompt-len`` positions) are filled with 0.01, not computed by an
-encoder pass.  The printed ``modelled`` step time is the P100 PCIe ledger
-model (``hw`` ``p100-pcie``), not a measurement.
+encoder pass.  The printed ``modelled`` step time is the ledger's model of
+the H100 (``hw`` ``h100-sxm``, the port's default), not a measurement.
 
 The ``stencil`` subcommand runs the multi-tenant
 :class:`repro_torch.serve.StencilServer`: N CloverLeaf 2D tenants submitted

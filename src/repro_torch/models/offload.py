@@ -32,8 +32,8 @@ The reference's unused ``flops_per_layer_per_token`` argument and
 reference's eviction order (the slot furthest behind the
 layer being fetched) and its speculative ``_fetch(0)``, so ``uploaded_bytes``
 and the modelled step equal the reference's.  The default ``hw`` is the
-port's ``P100_PCIE`` (the reference's default, its TPU preset, is not a
-figure of this port), so ``modelled_step_s`` is a P100 PCIe model, not a
+port's own target, ``H100`` (the reference's is its ``TPU_V5E``), so
+``modelled_step_s`` is a model of the H100's achieved rates, not a
 measurement.  On the CPU the slots are plain tensors and uploads are
 synchronous copies.
 """
@@ -44,7 +44,7 @@ from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 
-from ..core.memory import P100_PCIE, HardwareModel, TransferLedger
+from ..core.memory import H100, HardwareModel, TransferLedger
 from .transformer import (
     Block,
     Transformer,
@@ -95,7 +95,7 @@ class LayerStreamer:
     """
 
     def __init__(self, model: Transformer, *, window: int = 3,
-                 hw: HardwareModel = P100_PCIE):
+                 hw: HardwareModel = H100):
         cfg = model.cfg
         if cfg.family not in STREAMED_FAMILIES:
             # The reference's streamer asserts the same (in its decode).

@@ -44,8 +44,8 @@ Ported from ``src/repro/serve/server.py``.  What differs:
   tenant thread would enqueue its tiles on the legacy default stream and
   the lanes would serialise there.  A plain Session computes on the
   caller's current stream.
-* The default ``hw`` is the port's default, ``P100_PCIE`` (the port has no
-  TPU preset).
+* The default ``hw`` is the port's own target, ``H100``, where the
+  reference's is its ``TPU_V5E``.
 * The oracle splits chains as the port's ``run_chain`` does (see
   :mod:`repro_torch.serve.oracle`).
 """
@@ -64,7 +64,7 @@ from typing import (Any, Callable, Dict, List, Optional, Sequence, Union,
 import torch
 
 from ..core.backends import _ooc_executor
-from ..core.memory import P100_PCIE, HardwareModel
+from ..core.memory import H100, HardwareModel
 from ..core.mesh import parse_mesh
 from ..core.program import ExecutionConfig, Session, SessionClosedError
 from ..core.store import load_checkpoint, save_checkpoint
@@ -174,7 +174,7 @@ class StencilServer:
                  device: str = "cuda",
                  policy: str = "fifo",
                  backend: str = "ooc",
-                 hw: Union[HardwareModel, str] = P100_PCIE,
+                 hw: Union[HardwareModel, str] = H100,
                  capacity_bytes: Optional[float] = None,
                  num_slots: int = 3,
                  num_tiles: Optional[int] = None,

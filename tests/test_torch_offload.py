@@ -130,7 +130,7 @@ def test_launcher_decodes_on_the_cpu(offload, capsys):
     assert launch_serve.main(argv + (["--offload"] if offload else [])) == 0
     line = capsys.readouterr().out.strip().splitlines()[-1]
     assert line.startswith("arch=llama3.2-1b batch=4 device=cpu")
-    assert ("modelled, p100-pcie=" in line) == offload
+    assert (f"modelled, {TM.H100.name}=" in line) == offload
 
 
 def test_launcher_refuses_an_unported_family(capsys):
