@@ -63,8 +63,11 @@ Phases, each of which asserts (any failure exits non-zero):
    24576^2 interior (u and tmp homes: 4.83 GB, pinned) on
    ``Session("ooc")`` with a device capacity of a third of the homes, then on
    ``"ooc-async"`` (bit-identical to ``ooc``), then on ``"cuda"`` (fields
-   atol 1e-5, reductions rtol 1e-3).  Peak device memory must stay below the
-   homes' size.  Each run's tile graphs (``core/tile_graph.py``: the tile
+   atol 1e-5, reductions rtol 1e-3).  ``ooc`` and ``ooc-async`` run under a
+   hard cap on the process's device memory at their capacity
+   (``memory_cap``), and their peak must stay within the capacity (and below
+   the homes' size); each prints the workspace its plans charged
+   (``core/workspace.py``) beside its tiles.  Each run's tile graphs (``core/tile_graph.py``: the tile
    function as CUDA graphs) are printed: warm-ups, captures, replays,
    capture seconds, pool bytes, beside the peak over the capacity.  Then
    one- and two-slot pools, whose slots are reused at once, at a quarter of
@@ -76,15 +79,18 @@ Phases, each of which asserts (any failure exits non-zero):
    baseline) and ``reference``, all on the card, with one record per
    Session chain (tiles, splits, wall, plan seconds, cache hits, its tile
    graphs' warm-ups, captures, replays, capture seconds and pool bytes), the
-   lanes' bytes and rates, peak device memory (below the homes; the peak
-   reserved beside it) and the paper's resident-over-out-of-core ratio of
+   lanes' bytes and rates, the workspace each chain's plan charged, peak
+   device memory (within the capacity under a hard cap at it on ``ooc`` and
+   ``ooc-async``, ``memory_cap``; below the homes; the peak reserved beside
+   it) and the paper's resident-over-out-of-core ratio of
    wall per step.  Every timestep chain of ``ooc`` and ``ooc-async`` must
    replay at least one tile graph, and one more step of ``ooc``, run after
    its records, fields and digests are taken, holds every replay of its
    timestep chain against the eager tile function on cloned slots
    (``torch.equal``, ``TileGraphs.check_replays``); then CloverLeaf 3D and
-   OpenSBLI (two timesteps a chain) at 256^3, 2 steps on ``ooc`` against
-   ``reference``.  Fields rtol 1e-4 / atol 1e-5, summaries rtol 1e-3;
+   OpenSBLI (two timesteps a chain) at 256^3, 2 steps on ``ooc`` (no hard
+   cap; the peak over the capacity printed) against ``reference``.
+   Fields rtol 1e-4 / atol 1e-5, summaries rtol 1e-3;
 8. disk tier — CloverLeaf 2D at phase 7's size with its homes on disk,
    under ``build/spill/`` (deleted at the end; the phase first checks the
    free space and fails if it is short): ``mmap`` homes on ``ooc`` with the
@@ -864,9 +870,27 @@ def chain2d_phase(n: int, reps: int):
 # -- phase 6: the out-of-core path ------------------------------------------------
 
 
+@contextlib.contextmanager
+def memory_cap(capacity: float):
+    """A hard cap on this process's device memory for the ``with`` body:
+    what the caching allocator holds once its cache is emptied, plus
+    ``capacity``.  An allocation past it raises; the cap is lifted at the
+    end.  Only this script sets it: the package never changes a
+    process-wide memory setting."""
+    torch.cuda.empty_cache()
+    total = torch.cuda.mem_get_info()[1]
+    torch.cuda.set_per_process_memory_fraction(
+        (torch.cuda.memory_reserved() + capacity) / total)
+    try:
+        yield
+    finally:
+        torch.cuda.set_per_process_memory_fraction(1.0)
+
+
 def ooc_phase(n: int, steps: int, rounds: int = 2) -> None:
     """Two rounds of the program per session: the first plans the chain
-    (cold), the second replays the cached plan (a steady-state step)."""
+    (cold), the second replays the cached plan (a steady-state step).  Both
+    lane modes run under a hard cap at their capacity (``memory_cap``)."""
     homes = heat_inputs((n, n), seed=2)
     home_bytes = sum(a.nbytes for a in homes.values())
     cap = home_bytes / 3
@@ -877,7 +901,8 @@ def ooc_phase(n: int, steps: int, rounds: int = 2) -> None:
         base = torch.cuda.memory_allocated()
         base_reserved = torch.cuda.memory_reserved()
         sess = Session(backend, capacity_bytes=cap, cyclic=True, prefetch=True)
-        got, reds, walls = heat(sess, homes, steps, summary=True, rounds=rounds)
+        with memory_cap(cap):
+            got, reds, walls = heat(sess, homes, steps, summary=True, rounds=rounds)
         peak = torch.cuda.max_memory_allocated() - base
         peak_reserved = torch.cuda.max_memory_reserved() - base_reserved
         st = sess.transfer_stats()
@@ -898,10 +923,12 @@ def ooc_phase(n: int, steps: int, rounds: int = 2) -> None:
              graph_per_chain=[{f: getattr(h, f) for f in GRAPH_FIELDS}
                               for h in hist],
              peak_device_bytes=peak, peak_over_capacity=peak / cap,
-             peak_reserved_bytes=peak_reserved, capacity_bytes=cap,
+             peak_reserved_bytes=peak_reserved, capacity_bytes=cap, hard_cap=True,
+             workspace_bytes=[h.workspace_bytes for h in hist],
              home_bytes=home_bytes, reductions=reds)
         check(all(h.num_tiles > 1 for h in hist), "ran out of core")
         check(peak < home_bytes, f"peak {peak} B not below the homes {home_bytes} B")
+        check(peak <= cap, f"peak {peak} B within the capacity {cap} B")
         results[backend] = (got, reds)
     a, b = results["ooc"], results["ooc-async"]
     check(torch.equal(torch.from_numpy(a[0]), torch.from_numpy(b[0]))
@@ -943,7 +970,8 @@ APP_FIELDS = {"cloverleaf2d": ("density0", "energy0", "xvel0", "yvel0"),
 
 
 def run_app(name: str, make_app, backend: str, steps: int, drive=None,
-            digests: bool = False, check_after=None, **kw) -> dict:
+            digests: bool = False, check_after=None, cap: float = None,
+            **kw) -> dict:
     """One app run on the card: fresh homes (RAM homes pinned before the
     run, as in phase 6; disk-backed homes are never pinned), peak device
     memory from a reset, and one record per chain the Session flushed — its
@@ -955,7 +983,9 @@ def run_app(name: str, make_app, backend: str, steps: int, drive=None,
     fields and digests are taken (none of them counts it), with every
     tile-graph replay held against the eager tile function on cloned slots
     (``TileGraphs.check_replays``); its chains' records are
-    ``checked_chains``.  The Session is closed and the homes are dropped
+    ``checked_chains``.  ``cap`` runs the drive (not ``check_after``) under
+    a hard cap at that capacity (``memory_cap``).  The Session is closed and
+    the homes are dropped
     before this returns, so
     their pins are released; the fields come back as copies, and with
     ``digests`` every dataset's whole padded home as a SHA-1 digest."""
@@ -980,6 +1010,7 @@ def run_app(name: str, make_app, backend: str, steps: int, drive=None,
             "loops": len(chain), "first": chain[0].name, "last": chain[-1].name,
             "wall_s": time.perf_counter() - t0,
             "tiles": [h.num_tiles for h in hist],
+            "workspace_bytes": [h.workspace_bytes for h in hist],
             "plan_s": sum(h.plan_s for h in hist),
             "verify_s": sum(h.verify_s for h in hist),
             "cache_hits": sum(h.plan_cache_hit for h in hist),
@@ -993,9 +1024,10 @@ def run_app(name: str, make_app, backend: str, steps: int, drive=None,
     base = torch.cuda.memory_allocated()
     base_reserved = torch.cuda.memory_reserved()
     t0 = time.perf_counter()
-    summary = (drive(app, sess) if drive is not None
-               else app.run(sess, steps=steps))
-    torch.cuda.synchronize()
+    with memory_cap(cap) if cap is not None else contextlib.nullcontext():
+        summary = (drive(app, sess) if drive is not None
+                   else app.run(sess, steps=steps))
+        torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated() - base
     peak_reserved = torch.cuda.max_memory_reserved() - base_reserved
@@ -1192,12 +1224,12 @@ def apps_phase(n2d: int, n3d: int, steps2d: int = 4, steps3d: int = 2) -> dict:
     cap = homes / 3
     runs = {}
     at = {"ooc": {}, "reference": {}}
-    for backend, kw in (("ooc", dict(capacity_bytes=cap, prefetch=True,
+    for backend, kw in (("ooc", dict(capacity_bytes=cap, prefetch=True, cap=cap,
                                      digests=True, drive=recording_at(
                                          CUT_STEPS, steps2d, at["ooc"], digests=True),
                                      check_after=lambda app, sess: app.run_steps(
                                          sess, steps2d, steps2d + 1))),
-                        ("ooc-async", dict(capacity_bytes=cap, prefetch=True)),
+                        ("ooc-async", dict(capacity_bytes=cap, prefetch=True, cap=cap)),
                         ("resident", dict()),
                         ("reference", dict(drive=recording_at(CUT_STEPS, steps2d,
                                                               at["reference"])))):
@@ -1217,6 +1249,8 @@ def apps_phase(n2d: int, n3d: int, steps2d: int = 4, steps3d: int = 2) -> dict:
                 executor_chains=sum(len(c["tiles"]) for c in chains),
                 chains_split=sum(len(c["tiles"]) > 1 for c in chains),
                 tiles_per_chain=[c["tiles"] for c in chains],
+                workspace_per_chain=[c["workspace_bytes"] for c in chains],
+                hard_cap=backend.startswith("ooc"),
                 graph=graph_record(run["transfer"]),
                 graph_per_chain=[c["graph"] for c in chains],
                 peak_reserved_bytes=run["peak_reserved_bytes"],
@@ -1230,6 +1264,8 @@ def apps_phase(n2d: int, n3d: int, steps2d: int = 4, steps3d: int = 2) -> dict:
         check(all(t > 1 for c in run["chains"] for t in c["tiles"]), "ran out of core")
         check(run["peak_device_bytes"] < homes,
               f"peak {run['peak_device_bytes']} B not below the homes {homes} B")
+        check(run["peak_device_bytes"] <= cap,
+              f"peak {run['peak_device_bytes']} B within the capacity {cap} B")
         steps = [c for c in run["chains"] if c["loops"] >= TIMESTEP_LOOPS]
         check(len(steps) >= steps2d and all(c["graph"]["graph_replays"] >= 1 for c in steps),
               f"{run['backend']}: a tile-graph replay in every timestep chain: "
@@ -1270,6 +1306,9 @@ def apps_phase(n2d: int, n3d: int, steps2d: int = 4, steps3d: int = 2) -> dict:
                         lambda: CloverLeaf3D(n3d, n3d, n3d, summary_every=steps3d)),
                        ("opensbli", lambda: OpenSBLI(n3d, chain_steps=2))):
         homes3 = len(make().dats) * (n3d + 4) ** 3 * 4
+        # No hard cap here: under one at its capacity, CloverLeaf 3D's first
+        # dt chain ran out of memory in a warm-up; its blocks under 10 MiB
+        # share segments whose slack the charge does not bound (ROADMAP C10).
         got = run_app(name, make, "ooc", steps3d, capacity_bytes=homes3 / 3,
                       prefetch=True)
         want = run_app(name, make, "reference", steps3d)
@@ -1280,7 +1319,10 @@ def apps_phase(n2d: int, n3d: int, steps2d: int = 4, steps3d: int = 2) -> dict:
              home_bytes=homes3, capacity_bytes=homes3 / 3, wall_s=got["wall_s"],
              reference_wall_s=want["wall_s"], max_abs_err_vs_reference=err,
              peak_device_bytes=got["peak_device_bytes"],
+             peak_over_capacity=got["peak_device_bytes"] / (homes3 / 3),
+             peak_reserved_bytes=got["peak_reserved_bytes"], hard_cap=False,
              tiles_per_chain=[c["tiles"] for c in got["chains"]],
+             workspace_per_chain=[c["workspace_bytes"] for c in got["chains"]],
              graph=graph_record(got["transfer"]),
              plan_s=sum(c["plan_s"] for c in got["chains"]),
              by_signature=chain_groups(got["chains"]), summary=got["summary"],

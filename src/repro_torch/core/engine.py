@@ -192,7 +192,9 @@ class TileEngine:
         start, where ``coords()`` reads it, from ``start_t(k, start)``."""
         chain, td, halos = self.chain, self.td, self.halos
         reds: Dict[str, torch.Tensor] = {}
-        storages = {a.untyped_storage().data_ptr() for a in slots.values()}
+        # Storage identity, not ``data_ptr``: every ``meta`` tensor's is 0
+        # (the workspace trace, ``core/workspace.py``, runs this on meta).
+        storages = {a.untyped_storage()._cdata for a in slots.values()}
         device = next(iter(slots.values())).device
         for k, lp in enumerate(chain.loops):
             box = tile.loop_ranges[k]
@@ -220,7 +222,7 @@ class TileEngine:
                         f"kernel of {lp.name!r}: {name!r} shape {tuple(vals.shape)} "
                         f"!= box {sizes}"
                     )
-                if vals.untyped_storage().data_ptr() in storages:
+                if vals.untyped_storage()._cdata in storages:
                     vals = vals.clone()   # a view of a slot: copy before writing
                 starts = [start - origins[name] if d == td
                           else lp.range_[d][0] + halos[name][d]

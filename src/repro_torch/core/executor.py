@@ -57,12 +57,14 @@ from .dependency import (
 from .device import resolve_device
 from .engine import TileEngine
 from .interp import DataPlaneInterpreter, LedgerInterpreter, SpecState
+from .tile_graph import drop_pool
 from .loop import ParallelLoop
 from .memory import H100, HardwareModel, TransferLedger
 from .plan import Plan, build_plan
-from .tiling import TileSchedule, choose_num_tiles, make_tile_schedule
+from .tiling import TileSchedule, make_tile_schedule
 from .transfer import ResidencyManager, TransferEngine, resolve_codecs
 from .transfer.engine import DOWN, UP
+from .workspace import Workspaces
 from ..obs.tracer import AnyTracer, as_tracer
 
 
@@ -166,6 +168,10 @@ class ChainStats:
     graph_capture_s: float = 0.0
     graph_pool_bytes: int = 0
     graph_checked: int = 0
+    # -- the device capacity (repro_torch.core.workspace) ---------------------
+    # What the plan charged beside its slots and pinned residency: the tile
+    # function's workspace and the allocator's rounding.
+    workspace_bytes: int = 0
 
 
 # ChainStats fields of the tile graphs (``TileGraphs.stats()``'s keys).
@@ -192,6 +198,9 @@ class ChainPlan:
     ir: Plan = None                         # the typed instruction stream
     pinned_names: frozenset = frozenset()   # pinned datasets this chain touches
     pinned_bytes: int = 0                   # their whole-array residency cost
+    # Charged beside them: the tile function's workspace and the allocator's
+    # rounding of the slot and pinned tensors (core/workspace.py).
+    workspace_bytes: int = 0
 
 
 class OutOfCoreExecutor:
@@ -216,6 +225,9 @@ class OutOfCoreExecutor:
         self._plans: "OrderedDict[Tuple, ChainPlan]" = OrderedDict()
         self._max_plans = 32
         self._no_fit: set = set()   # keys known to raise MemoryError
+        # The tile function's workspace and the tile counts that fit it
+        # (memoised on the chain's structure, not its captured values).
+        self.workspaces = Workspaces()
         self.plan_hits = 0
         self.plan_misses = 0
         self.plan_time_s = 0.0
@@ -302,18 +314,27 @@ class OutOfCoreExecutor:
         try:
             info = analyze_chain(loops, tiled_dim=cfg.tiled_dim)
             pinned_names = self.residency.pinned & frozenset(info.datasets)
-            n_tiles = cfg.num_tiles or choose_num_tiles(
-                info, cfg.capacity, num_slots=cfg.num_slots
-            )
-            sched = make_tile_schedule(info, n_tiles)
-            slot_bytes = sched.slot_bytes(exclude=pinned_names)
             pinned_bytes = sum(info.datasets[n].nbytes for n in pinned_names)
+            # The eager tile function's intermediates sit beside the slots on
+            # the device: the tile count is the smallest whose slots, pinned
+            # residency and workspace fit (``core/workspace.py``).
+            if cfg.num_tiles:
+                sched = make_tile_schedule(info, cfg.num_tiles)
+                # Nothing to charge against an unbounded capacity.
+                workspace = (self.workspaces.charge(
+                    info, sched, pinned_names, cfg.num_slots)
+                    if np.isfinite(cfg.capacity) else 0)
+            else:
+                sched, workspace = self.workspaces.fit_tiles(
+                    info, cfg.capacity, cfg.num_slots, pinned_names,
+                    pinned_bytes)
+            slot_bytes = sched.slot_bytes(exclude=pinned_names)
             # Single capacity oracle for BOTH tiers: fast-memory overflow
             # raises (run_chain answers by splitting); host-RAM overflow is
             # a planning verdict — the chain's home working set spills to
             # the disk tier via FetchHome/SpillHome ops instead of dying.
             home_bytes = sum(d.nbytes for d in info.datasets.values())
-            self.residency.check_fit(slot_bytes, pinned_bytes)
+            self.residency.check_fit(slot_bytes, pinned_bytes, workspace)
             spill_home = self.residency.host_overflow(home_bytes,
                                                       cfg.host_budget)
         except MemoryError:
@@ -336,6 +357,7 @@ class OutOfCoreExecutor:
             slot_bytes=slot_bytes, sig=chain_signature(info),
             plan_s=time.perf_counter() - t0, ir=ir,
             pinned_names=pinned_names, pinned_bytes=pinned_bytes,
+            workspace_bytes=workspace,
         )
         self._plans[key] = plan
         if len(self._plans) > self._max_plans:
@@ -372,6 +394,7 @@ class OutOfCoreExecutor:
             key=key, info=info, sched=cp.sched, engine=cp.engine,
             slot_bytes=cp.slot_bytes, sig=cp.sig, plan_s=0.0, ir=cp.ir,
             pinned_names=cp.pinned_names, pinned_bytes=cp.pinned_bytes,
+            workspace_bytes=cp.workspace_bytes,
         )
 
     @property
@@ -393,6 +416,8 @@ class OutOfCoreExecutor:
         device state from before the checkpoint.  Plan caches survive: plans
         are data-independent."""
         self.residency._pinned_cache.clear()
+        if self.device.type == "cuda":
+            drop_pool(self.device, self, "_spec")   # its captures' pool
         self._spec = SpecState()
 
     def __del__(self):  # pragma: no cover - interpreter-shutdown timing
@@ -561,6 +586,7 @@ class OutOfCoreExecutor:
                 halo_messages=res.halo_messages,
                 halo_bytes=res.halo_bytes,
                 **graph_stats,
+                workspace_bytes=cp.workspace_bytes,
             )
         )
         return res.reductions

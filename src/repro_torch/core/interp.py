@@ -55,7 +55,8 @@ from .plan import (
 )
 from .dataset import torch_dtype
 from .store import RamStore
-from .tile_graph import TileGraphs
+from .tile_graph import TileGraphs, allocating_to, device_lock, drop_pool
+from .workspace import one_block
 from .tiling import Interval
 from .transfer import ResidencyManager, Slot
 from .transfer.engine import DISK, DOWN, UP
@@ -85,6 +86,9 @@ class SpecState:
     uploaded: Dict[str, Tuple[Interval, ...]] = field(default_factory=dict)
     data: Dict[str, list] = field(default_factory=dict)
     sig: Optional[str] = None
+    # On CUDA, the memory pool the captured tensors live in, dropped once
+    # they are restored (``DataPlaneInterpreter.begin``).
+    pool: Any = None
 
 
 @dataclass
@@ -584,17 +588,22 @@ def simulate_plan(plan: Plan, hw: HardwareModel) -> InterpResult:
     return LedgerInterpreter(plan, hw).run()
 
 
-def predict_plans(plans: Sequence[Plan], hw: HardwareModel) -> Tuple[float, int]:
+def predict_plans(plans: Sequence[Plan], hw: HardwareModel,
+                  workspace: Sequence[int] = ()) -> Tuple[float, int]:
     """Admission-oracle prediction over one chain's (possibly split) plans:
     the summed cold-cache modelled makespan and the peak fast-memory
-    footprint — slot pool plus pinned residency — any single plan claims
-    while it runs.  Plans in a split chain execute back-to-back on one
-    device, so footprints max (never sum) across them."""
+    footprint — slot pool plus pinned residency plus what the executor
+    charged beside them (``workspace``, one entry per plan: the tile
+    function's workspace and the allocator's rounding,
+    :mod:`repro_torch.core.workspace`) — any single plan claims while it
+    runs.  Plans in a split chain execute back-to-back on one device, so
+    footprints max (never sum) across them."""
     makespan = 0.0
     peak = 0
-    for p in plans:
+    extra = list(workspace) + [0] * (len(plans) - len(workspace))
+    for p, ws in zip(plans, extra):
         makespan += simulate_plan(p, hw).makespan
-        peak = max(peak, p.slot_bytes * p.num_slots + p.pinned_bytes)
+        peak = max(peak, p.slot_bytes * p.num_slots + p.pinned_bytes + ws)
     return makespan, peak
 
 
@@ -697,6 +706,15 @@ class DataPlaneInterpreter(LedgerInterpreter):
         # ``begin``, released in ``finish``) and what they recorded.
         self.graphs: Optional[TileGraphs] = None
         self.graph_stats: Dict[str, float] = {}
+        # On CUDA, the run's memory pool: its slots, and the tile graphs'
+        # warm-ups and captures; dropped at the run's end, which gives its
+        # memory back to the card (``_release_device``).
+        self.pool: Any = None
+        self._capture_pool: Any = None
+        # Tile 0's upload rows ``begin`` restored from the prefetch captures,
+        # and the slot they went into.
+        self._restored: Dict[Tuple[str, int, int], Interval] = {}
+        self._restored_slot: Optional[Slot] = None
 
     # -- streams and events ---------------------------------------------------
     def _record(self, timing: bool = False) -> Any:
@@ -777,35 +795,67 @@ class DataPlaneInterpreter(LedgerInterpreter):
         pinned = {n for n, _ in
                   (e for op in self.plan.ops if isinstance(op, PinUpload)
                    for e in op.entries)}
+        # Hazard — prefetch captures beside the slots: the last chain's
+        # device copies of this chain's first upload would sit beside every
+        # slot until tile 0's upload read them, a fourth buffer the plan
+        # does not charge.  They are copied into the first slot as soon as
+        # it exists (tile 0's: the slot pool's least recently used) and dropped
+        # before the other slots are made.
+        captures, self.spec.data = self.spec.data, {}
+        self._capture_pool, self.spec.pool = self.spec.pool, None
+        if not self.spec_valid:
+            captures = {}
+            drop_pool(self.device, self, "_capture_pool")
+        # Hazard — device memory beyond the plan's: the slots, the warm-ups
+        # and the captures of this run share one pool, dropped at its end,
+        # so nothing of one run stays reserved into the next.
+        if self.cuda:
+            self.pool = torch.cuda.MemPool()
         # Hazard — slot allocation on ``config.device``: the zero-filled
         # slots are made on the compute stream, so the lanes wait on
         # ``alloc_event`` before their first copy into them.
-        for slot in self.slots:
-            arrays = {}
-            for name, ln in self.sched.max_fp_len.items():
-                if name in pinned:
-                    continue
-                dat = self.info.datasets[name]
-                shape = list(dat.padded_shape)
-                shape[td] = ln
-                arrays[name] = torch.zeros(tuple(shape), dtype=torch_dtype(dat.dtype),
-                                           device=self.device)
-            slot.arrays = arrays
+        specs = {}
+        for name, ln in self.sched.max_fp_len.items():
+            if name in pinned:
+                continue
+            dat = self.info.datasets[name]
+            shape = list(dat.padded_shape)
+            shape[td] = ln
+            specs[name] = (tuple(shape), torch_dtype(dat.dtype))
+        for i, slot in enumerate(self.slots):
+            with allocating_to(self.pool, self.device):
+                blocks = one_block(list(specs.values()), self.device)
+            slot.arrays = dict(zip(specs, blocks))
+            if i == 0:
+                if captures:
+                    self._restore_prefetch(slot, captures)
+                del captures
+                drop_pool(self.device, self, "_capture_pool")
         self.alloc_event = self._record()
         if self.cuda:
             self.graphs = TileGraphs(self.engine, self.device,
                                      [a for slot in self.slots
-                                      for a in slot.arrays.values()])
+                                      for a in slot.arrays.values()], self.pool)
+
+    def _release_device(self) -> None:
+        """Drop the tile graphs, the slot tensors and the run's pool under
+        the card's lock; the caller has synchronised the compute stream."""
+        with device_lock(self.device):
+            if self.graphs is not None:
+                self.graphs.release()
+            for slot in getattr(self, "slots", ()):
+                slot.arrays = {}
+            self.pool = None
 
     def run(self) -> InterpResult:
         try:
             return super().run()
         finally:
-            if self.graphs is not None and self.graphs.is_open:
+            if self.pool is not None:
                 # A run that failed: its replays end before the pool is freed.
                 with contextlib.suppress(Exception):
                     self.compute_stream.synchronize()
-                self.graphs.release()
+                self._release_device()
 
     def finish(self) -> None:
         self.tx.drain()
@@ -814,7 +864,7 @@ class DataPlaneInterpreter(LedgerInterpreter):
             # land before reductions are read and slots are released.
             self.compute_stream.synchronize()
             self.graph_stats = self.graphs.stats()
-            self.graphs.release()
+            self._release_device()
         if self.device_spans:
             self._emit_device_spans()
         # Patch transfer events with the achieved wire bytes (codec output is
@@ -863,15 +913,24 @@ class DataPlaneInterpreter(LedgerInterpreter):
         # capture is a copy on the device, never a view of home rows (a later
         # chain overwrites them) nor of a slot.
         if self._prefetch_armed:
+            # The slots are done with: their memory goes before the
+            # captures are made.
+            for slot in self.slots:
+                slot.arrays = {}
             self.spec.data = {}
-            for name, ivs in self.spec.uploaded.items():
-                dat = self.info.datasets.get(name)
-                if dat is None:
-                    continue
-                self.spec.data[name] = [
-                    (iv, dat.rows_tensor(self.td, iv.lo, iv.hi).to(
-                        self.device, copy=True), id(dat), dat.version)
-                    for iv in ivs]
+            rows = [(name, iv, self.info.datasets[name].rows_tensor(self.td, iv.lo, iv.hi))
+                    for name, ivs in self.spec.uploaded.items()
+                    if name in self.info.datasets for iv in ivs]
+            pool = torch.cuda.MemPool() if self.cuda else None
+            with allocating_to(pool, self.device):
+                captured = one_block([(tuple(t.shape), t.dtype) for _, _, t in rows],
+                                      self.device)
+            self.spec.pool = pool
+            for (name, iv, src), dst in zip(rows, captured):
+                dst.copy_(src)
+                dat = self.info.datasets[name]
+                self.spec.data.setdefault(name, []).append(
+                    (iv, dst, id(dat), dat.version))
 
     # -- pinned residency -----------------------------------------------------
     def pin_ensure(self, name: str, nb: int) -> Tuple[int, int]:
@@ -959,29 +1018,52 @@ class DataPlaneInterpreter(LedgerInterpreter):
         return eid
 
     # -- staging --------------------------------------------------------------
+    def _restore_prefetch(self, slot: Slot, captures: Dict[str, list]) -> None:
+        """Copy the captured rows of tile 0's upload into ``slot`` (on the
+        compute stream, before ``alloc_event``).  A hit must be backed by a
+        captured device tensor whose dataset identity/version still matches
+        home — otherwise it degrades to a full miss, never to stale data.
+        :meth:`spec_lookup` then reports the hits."""
+        self._restored_slot = slot
+        up = next((op for op in self.plan.ops
+                   if isinstance(op, Upload) and op.tile == 0), None)
+        if up is None:
+            return
+        org = self.origins[0]
+        td = self.td
+        for name, lo, hi in up.items:
+            iv = Interval(lo, hi)
+            for j, piv in enumerate(self.spec.uploaded.get(name, ())):
+                hit = iv.intersect(piv)
+                if hit.empty or hit.lo != iv.lo:
+                    continue
+                ents = captures.get(name, ())
+                ent = ents[j] if j < len(ents) else None
+                dat = self.info.datasets[name]
+                if (ent is not None and ent[0] == piv and ent[2] == id(dat)
+                        and ent[3] == dat.version):
+                    dst, src = slot.arrays[name], ent[1]
+                    dst[_rows(dst, hit.lo - org[name], hit.hi - org[name], td)].copy_(
+                        src[_rows(src, hit.lo - piv.lo, hit.hi - piv.lo, td)])
+                    self._restored[(name, lo, hi)] = hit
+                break   # the first piece that starts the upload decides
+
     def spec_lookup(self, name: str,
                     iv: Interval) -> Tuple[Interval, Optional[Any]]:
-        """Data-plane prefetch resolution: a hit must be backed by a captured
-        device tensor whose dataset identity/version still matches home —
-        otherwise it degrades to a full miss, never to stale data."""
-        pre = self.spec.uploaded.get(name, ())
-        for j, piv in enumerate(pre):
-            hit = iv.intersect(piv)
-            if hit.empty or hit.lo != iv.lo:
-                continue
-            ents = self.spec.data.get(name, ())
-            ent = ents[j] if j < len(ents) else None
-            dat = self.info.datasets[name]
-            if (ent is not None and ent[0] == piv and ent[2] == id(dat)
-                    and ent[3] == dat.version):
-                self.prefetch_hits += 1
-                return Interval(hit.hi, iv.hi), (name, hit, ent[1], piv.lo)
-            return iv, None  # stale capture: stage everything from home
-        return iv, None
+        """Data-plane prefetch resolution: the rows :meth:`begin` restored
+        into tile 0's slot (:meth:`_restore_prefetch`) are a hit and need no
+        upload; anything else stages from home."""
+        hit = self._restored.get((name, iv.lo, iv.hi))
+        if hit is None:
+            return iv, None
+        if self.tile_slot[0] is not self._restored_slot:
+            raise RuntimeError("tile 0 did not get the slot its prefetched rows "
+                               "were restored into")
+        self.prefetch_hits += 1
+        return Interval(hit.hi, iv.hi), None
 
     def _make_upload_task(self, slot: Slot, org: Dict[str, int],
                           items: List[Tuple[str, Interval]],
-                          restores: List[Tuple],
                           waits: Sequence[Any]
                           ) -> Callable[[], Tuple[int, int]]:
         td = self.td
@@ -993,14 +1075,6 @@ class DataPlaneInterpreter(LedgerInterpreter):
         def task() -> Tuple[int, int]:
             raw = wire = 0
             pairs = []
-            # Prefetch restores: device-resident captures from the last
-            # chain's speculative upload — no link traffic (it was charged
-            # as the prefetch event back then).
-            for name, hit, arr, arr_lo in restores:
-                dst = arrays[name]
-                pairs.append((
-                    dst[_rows(dst, hit.lo - org[name], hit.hi - org[name], td)],
-                    arr[_rows(arr, hit.lo - arr_lo, hit.hi - arr_lo, td)]))
             for name, use in items:
                 dat = info.datasets[name]
                 codec = codecs[name]
@@ -1053,15 +1127,11 @@ class DataPlaneInterpreter(LedgerInterpreter):
         # for the last compute-stream op that read or wrote this slot.
         waits = (self.alloc_event, self.slot_event.get(slot.index))
         handle = self.tx.submit(
-            UP, self._make_upload_task(slot, org, items, restores, waits),
+            UP, self._make_upload_task(slot, org, items, waits),
             deps=conflicts)
         self.up_handles[op.tile] = handle
         for name, iv in items:
             self.rm.note_home_read(name, iv.lo, iv.hi, handle)
-        if not raw:
-            # Pure prefetch restore: device-side only, no link event (the
-            # traffic was charged as last chain's prefetch).
-            return None
         self.uploaded += raw
         eid = self.ledger.add(1, "upload", raw, self.ledger.t_up(raw), deps)
         self.patches.append((eid, handle, UP))

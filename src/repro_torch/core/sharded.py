@@ -761,6 +761,7 @@ class ShardedOutOfCoreExecutor:
             modelled_s=modelled,
             achieved_bw_model=loop_bytes / modelled if modelled else 0.0,
             slot_bytes=max((c.slot_bytes for c in flat), default=0),
+            workspace_bytes=max((c.workspace_bytes for c in flat), default=0),
             plan_cache_hit=all(c.plan_cache_hit for c in flat) if flat
             else False,
             plan_s=sum(c.plan_s for c in flat),

@@ -20,24 +20,33 @@ new on every run, and captured Python scalars (CloverLeaf's ``dt``) are
 the plan's, whose key fingerprints them.  A key's life:
 
 * its first tile runs the eager tile function on a side stream (one per
-  compute stream; the warm-up, with real results).  A key whose tiles never
-  repeat is never captured, so a host sync there costs time and nothing
-  else; the capture refuses one;
+  compute stream; the warm-up, with real results) with its allocations in
+  the run's one memory pool.  A key whose tiles never repeat is never
+  captured, so a host sync there costs time and nothing else; the capture
+  refuses one;
 * its second tile captures (``capture_error_mode="thread_local"``: the
   lanes' worker threads go on copying, and nothing synchronises the device
-  or empties the allocator's cache) into the run's one memory pool, then
-  replays on the caller's stream;
+  or empties the allocator's cache) into the same pool, then replays on the
+  caller's stream;
 * later tiles replay.  A key seen once captures nothing.
 
 The tiled dim's start, which ``coords()`` reads, lives in a 0-d ``int32``
 tensor per loop and key, filled on the compute stream before each replay
 (where a kernel reads it).  All graphs of a run share one pool: replays are
-serialised on one stream, each graph's reductions are cloned right after its
-replay, and nothing else of a replay outlives it.  The run's end drops the
-graphs; the caching allocator frees a pool that no graph uses when an
-allocation would otherwise fail, or at ``torch.cuda.empty_cache()``.  A
-failed capture or replay raises; nothing falls back to the eager tile
-function.
+serialised on one stream, each graph's and each warm-up's reductions are
+cloned out of it right after the replay or warm-up, and nothing else of
+either outlives it.  The run's end drops the graphs and the pool.  A failed
+capture or replay raises; nothing falls back to the eager tile function.
+
+The device memory of the tile function is one workspace, which the plan
+charges beside the slots (:mod:`repro_torch.core.workspace`).  A warm-up
+outside the pool would leave its blocks cached on the side stream while the
+next capture allocates the pool's: two workspaces, and under a hard cap a
+capture cannot free the first (the allocator frees no cached block while a
+capture is under way).  So warm-ups and captures share the pool, whose
+freed blocks each reuses; the run's slots are in it too
+(:class:`~repro_torch.core.interp.DataPlaneInterpreter`), so that dropping
+it at the run's end gives all of the run's memory back to the card.
 """
 from __future__ import annotations
 
@@ -52,23 +61,51 @@ from .engine import TileEngine
 from .tiling import TilePlan
 
 
-class _Side:
-    """What the runs on one compute stream share, made once: a side stream
-    for warm-ups and captures (a stream per run would take a new one from
-    PyTorch's round-robin pool every run, in time one a lane copies on, and
-    strand the warm-ups' cached blocks on it), and a lock: two runs on one
-    compute stream (two threads on a device's default stream) must not
-    enqueue on the side stream while the other captures on it."""
-
-    __slots__ = ("stream", "lock")
-
-    def __init__(self, device: torch.device):
-        self.stream = torch.cuda.Stream(device)
-        self.lock = threading.Lock()
-
-
+# What the runs on one compute stream share, made once: a side stream for
+# warm-ups and captures (a stream per run would take a new one from
+# PyTorch's round-robin pool every run, in time one a lane copies on).
 _SIDES_LOCK = threading.Lock()
-_SIDES: Dict[Tuple[int, int], _Side] = {}
+_SIDES: Dict[Tuple[int, int], torch.cuda.Stream] = {}
+# One lock per card for its runs' memory pools, held while a thread's
+# allocations go to a pool (``allocating_to``), while it captures, and while
+# a pool is dropped: the caching allocator frees a pool's memory only when no
+# capture or pool routing is under way on the card (it asserts so), and two
+# runs on one compute stream must not enqueue on its side stream while the
+# other captures there.
+_LOCKS: Dict[int, threading.RLock] = {}
+
+
+def _index(device) -> int:
+    device = torch.device(device)
+    return torch.cuda.current_device() if device.index is None else device.index
+
+
+def device_lock(device) -> threading.RLock:
+    """The card's pool lock (see above)."""
+    with _SIDES_LOCK:
+        return _LOCKS.setdefault(_index(device), threading.RLock())
+
+
+@contextlib.contextmanager
+def allocating_to(pool, device):
+    """This thread's allocations on ``device`` from ``pool`` (a
+    ``torch.cuda.MemPool``) for the ``with`` body, under the card's lock;
+    no routing where ``pool`` is None (the CPU)."""
+    if pool is None:
+        yield
+        return
+    with device_lock(device), torch.cuda.use_mem_pool(pool, _index(device)):
+        yield
+
+
+def drop_pool(device, owner, attr: str) -> None:
+    """Set ``owner.attr`` (the last reference to a pool, or to what holds
+    one) to None under the card's lock: the pool's memory goes back to the
+    card at once, not at the next allocation that fails."""
+    if getattr(owner, attr, None) is None:
+        return
+    with device_lock(device):
+        setattr(owner, attr, None)
 
 
 class _Key:
@@ -87,15 +124,16 @@ class _Key:
 class TileGraphs:
     """``engine``'s tile function as CUDA graphs for one run of its chain on
     ``device``, over ``tensors`` (the run's slot tensors; pinned tensors join
-    with :meth:`hold`).  Call it as ``engine.run_tile``: ``reds =
+    with :meth:`hold`), its warm-ups and captures in ``pool`` (the run's
+    ``torch.cuda.MemPool``, which the interpreter makes and its slots share).  Call it as ``engine.run_tile``: ``reds =
     graphs(tile, slots, origins)`` enqueues the tile on the current stream
     and returns its reduction contributions.  Raises ``ValueError`` for a
     tensor it does not hold (a replaced slot tensor).
 
     Records: ``warmups`` (keys seen, each first tile run eagerly),
     ``captures``, ``replays``, ``capture_s`` (host seconds of the captures,
-    instantiation included), ``pool_bytes`` (device bytes the captures
-    reserved for the run's pool), ``checked`` (replays held against the
+    instantiation included), ``pool_bytes`` (device bytes the warm-ups and
+    captures reserved for the run's pool), ``checked`` (replays held against the
     eager function, :attr:`check_replays`), ``last_mode`` (the last tile's:
     ``warmup``, ``capture`` or ``replay``)."""
 
@@ -105,17 +143,14 @@ class TileGraphs:
     check_replays = False
 
     def __init__(self, engine: TileEngine, device: torch.device,
-                 tensors: Iterable[torch.Tensor]):
+                 tensors: Iterable[torch.Tensor], pool):
         self.engine = engine
-        device = torch.device(device)
-        if device.index is None:
-            device = torch.device(device.type, torch.cuda.current_device())
-        self.device = device
+        self.device = torch.device("cuda", _index(device))
         self._held: Dict[int, torch.Tensor] = {}
         for t in tensors:
             self.hold(t)
         self._keys: Dict[Tuple, _Key] = {}
-        self._pool = torch.cuda.graph_pool_handle()
+        self._pool = pool
         self._check = self.check_replays
         self.warmups = self.captures = self.replays = self.checked = 0
         self.capture_s = 0.0
@@ -125,7 +160,7 @@ class TileGraphs:
         with _SIDES_LOCK:
             key = (self.device.index, main.cuda_stream)
             if key not in _SIDES:
-                _SIDES[key] = _Side(self.device)
+                _SIDES[key] = torch.cuda.Stream(self.device)
             self._side = _SIDES[key]
         self._open = True
 
@@ -147,11 +182,12 @@ class TileGraphs:
                 "graph_pool_bytes": self.pool_bytes, "graph_checked": self.checked}
 
     def release(self) -> None:
-        """Drop every graph and the tensors held; the pool, no longer used
-        by a graph, is the caching allocator's to free.  Idempotent; the
-        caller has synchronised the stream the replays ran on."""
+        """Drop every graph, the tensors held and the pool.  Idempotent; the
+        caller has synchronised the stream the replays ran on and holds the
+        card's lock (``drop_pool``), as the pool may go with the graphs."""
         self._keys.clear()
         self._held.clear()
+        self._pool = None
         self._open = False
 
     # -- the tile -----------------------------------------------------------------
@@ -181,14 +217,20 @@ class TileGraphs:
     def _warm(self, tile, slots, origins) -> Dict[str, torch.Tensor]:
         main = torch.cuda.current_stream(self.device)
         side = self._side
-        with side.lock:
-            side.stream.wait_stream(main)
-            with torch.cuda.stream(side.stream):
-                reds = self.engine.run_tile(tile, slots, origins)
-            main.wait_stream(side.stream)
+        before = torch.cuda.memory_reserved(self.device)
+        with device_lock(self.device):
+            side.wait_stream(main)
+            with torch.cuda.stream(side):
+                with allocating_to(self._pool, self.device):
+                    pooled = self.engine.run_tile(tile, slots, origins)
+                # out of the pool, whose blocks a later replay may write
+                reds = {name: v.clone() for name, v in pooled.items()}
+                del pooled
+            main.wait_stream(side)
         for v in reds.values():
             if v.is_cuda:
                 v.record_stream(main)
+        self.pool_bytes += torch.cuda.memory_reserved(self.device) - before
         self.warmups += 1
         return reds
 
@@ -205,9 +247,8 @@ class TileGraphs:
         # assigned first: a key whose capture failed raises again at its next
         # tile rather than running eagerly
         state.graph = graph = torch.cuda.CUDAGraph()
-        side = self._side
-        with side.lock, torch.cuda.stream(side.stream):
-            graph.capture_begin(pool=self._pool, capture_error_mode="thread_local")
+        with device_lock(self.device), torch.cuda.stream(self._side):
+            graph.capture_begin(pool=self._pool.id, capture_error_mode="thread_local")
             try:
                 state.reds = self.engine.tile_fn(tile, slots, origins, start_t)
             except BaseException:

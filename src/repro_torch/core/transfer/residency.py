@@ -24,7 +24,10 @@ The manager works in grid-row intervals along the tiled dimension (byte
 accounting stays in the executor, which knows row byte-widths).
 
 Copied from ``src/repro/core/transfer/residency.py`` with its imports rewired to
-``repro_torch``; it imports neither JAX nor ``repro``.
+``repro_torch``; it imports neither JAX nor ``repro``.  One addition:
+``check_fit`` also charges the tile function's workspace
+(:mod:`repro_torch.core.workspace`), which the reference's one XLA program
+per tile does not need.
 """
 from __future__ import annotations
 
@@ -100,20 +103,25 @@ class ResidencyManager:
     # splitting the chain.  Host tier: overflow is *plannable* — the planner
     # answers it with FetchHome/SpillHome ops against the disk-backed store —
     # so ``host_overflow`` returns a verdict instead of raising.
-    def required_bytes(self, slot_bytes: int, pinned_bytes: int = 0) -> int:
-        return self.num_slots * int(slot_bytes) + int(pinned_bytes)
+    def required_bytes(self, slot_bytes: int, pinned_bytes: int = 0,
+                       workspace_bytes: int = 0) -> int:
+        return (self.num_slots * int(slot_bytes) + int(pinned_bytes)
+                + int(workspace_bytes))
 
-    def check_fit(self, slot_bytes: int, pinned_bytes: int = 0) -> int:
+    def check_fit(self, slot_bytes: int, pinned_bytes: int = 0,
+                  workspace_bytes: int = 0) -> int:
         """Raise ``MemoryError`` when the plan cannot be fast-memory resident
         (the fast-tier half of the oracle; :meth:`host_overflow` is the host
         tier's)."""
-        req = self.required_bytes(slot_bytes, pinned_bytes)
+        req = self.required_bytes(slot_bytes, pinned_bytes, workspace_bytes)
         self.stats["peak_required_bytes"] = max(
             self.stats["peak_required_bytes"], req)
         if req > self.capacity_bytes:
             raise MemoryError(
                 f"{self.num_slots} slots x {int(slot_bytes)}B"
                 + (f" + {int(pinned_bytes)}B pinned" if pinned_bytes else "")
+                + (f" + {int(workspace_bytes)}B tile workspace"
+                   if workspace_bytes else "")
                 + f" exceed fast capacity {int(self.capacity_bytes)}B; "
                 f"increase num_tiles")
         return req

@@ -5,7 +5,9 @@ submitted chain is lowered to its instruction stream(s) through the shared
 plan cache (so repeat chains cost a cache lookup), then costed with
 ``simulate_plan`` on cold caches.  The oracle answers two questions:
 
-* **does it fit** — mirror ``run_chain``'s MemoryError chain-splitting; if
+* **does it fit** — mirror ``run_chain``'s MemoryError chain-splitting (the
+  executor charges slots, pinned residency and the tile function's
+  workspace, ``repro_torch.core.workspace``, and so does the verdict); if
   even single-loop chains cannot fit the slot pool, the job is *rejected*
   (typed :class:`~repro_torch.serve.AdmissionError` at the submit site)
   instead of wedging a lane at run time;
@@ -28,7 +30,7 @@ from __future__ import annotations
 
 import threading
 from dataclasses import dataclass
-from typing import FrozenSet, List, Optional, Sequence, TYPE_CHECKING
+from typing import FrozenSet, List, Optional, Sequence, Tuple, TYPE_CHECKING
 
 from ..core.dependency import split_chain
 from ..core.interp import predict_plans
@@ -91,7 +93,7 @@ class AdmissionOracle:
             self._ex.tenant = tenant
             self.predictions += 1
             try:
-                plans = self._plan_split(list(loops), frozenset(), frozenset())
+                planned = self._plan_split(list(loops), frozenset(), frozenset())
             except MemoryError as e:
                 self.rejections += 1
                 return AdmissionVerdict(
@@ -99,23 +101,27 @@ class AdmissionOracle:
                     predicted_bytes=0, capacity_bytes=self.capacity_bytes,
                     chains=0,
                     reason=f"no tiling fits even single-loop chains: {e}")
-            makespan, peak = predict_plans(plans, self.hw)
+            makespan, peak = predict_plans([p for p, _ in planned], self.hw,
+                                           [ws for _, ws in planned])
             return AdmissionVerdict(
                 admitted=True, predicted_makespan_s=makespan,
                 predicted_bytes=peak, capacity_bytes=self.capacity_bytes,
-                chains=len(plans))
+                chains=len(planned))
 
     def close(self) -> None:
         self._ex.close()
 
     def _plan_split(self, loops: List["ParallelLoop"],
                     keep_live: FrozenSet[str],
-                    warm: FrozenSet[str]) -> List["Plan"]:
-        """``run_chain``'s MemoryError split, plans only: the oracle must
+                    warm: FrozenSet[str]) -> List[Tuple["Plan", int]]:
+        """``run_chain``'s MemoryError split, plans only, each with what the
+        executor charged beside its slots (its workspace): the oracle must
         predict exactly the chains a lane will execute."""
         try:
-            ir = self._ex.plan_chain(loops, keep_live, warm=warm).ir
-            return list(ir) if isinstance(ir, tuple) else [ir]
+            cp = self._ex.plan_chain(loops, keep_live, warm=warm)
+            ws = getattr(cp, "workspace_bytes", 0)
+            return ([(p, ws) for p in cp.ir] if isinstance(cp.ir, tuple)
+                    else [(cp.ir, ws)])
         except MemoryError:
             if len(loops) <= 1:
                 raise

@@ -23,6 +23,7 @@ import repro.core as J  # noqa: E402
 import repro_torch.apps as TA  # noqa: E402
 import repro_torch.configs as TC  # noqa: E402
 import repro_torch.core as T  # noqa: E402
+from _torch_reference_tiles import reference_tiles  # noqa: E402
 from repro_torch.launch import serve as launch_serve  # noqa: E402
 from repro_torch.models import init_params  # noqa: E402
 from repro_torch.models.offload import StreamedDecoder  # noqa: E402
@@ -111,8 +112,11 @@ def _init_and_step(pkg, A, name, backend, **kw):
 @pytest.fixture(scope="module", params=sorted(APPS))
 def app_runs(request):
     name = request.param
+    # the port at the JAX package's tile counts (tests/_torch_reference_tiles.py)
+    with reference_tiles():
+        port = _init_and_step(T, TA, name, "ooc", device="cpu")
     return {"name": name,
-            "port": _init_and_step(T, TA, name, "ooc", device="cpu"),
+            "port": port,
             "jax": _init_and_step(J, JA, name, "sim", hw=JHW),
             "jax_p100": _init_and_step(J, JA, name, "sim", hw=J.P100_PCIE),
             "jax_reference": _init_and_step(J, JA, name, "reference")}

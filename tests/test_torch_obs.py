@@ -18,6 +18,7 @@ import repro.core as J  # noqa: E402
 import repro.obs as JO  # noqa: E402
 import repro_torch.apps as TA  # noqa: E402
 import repro_torch.core as T  # noqa: E402
+from _torch_reference_tiles import reference_tiles  # noqa: E402
 from repro_torch.core.interp import DataPlaneInterpreter  # noqa: E402
 from repro_torch.obs import compare  # noqa: E402
 from repro_torch.serve import StencilServer  # noqa: E402
@@ -37,7 +38,9 @@ def _sim_traced(C, app, **kw):
 
 
 def test_sim_drift_audit_is_oracle_exact():
-    sess = _sim_traced(T, TA.CloverLeaf2D(40, 24, summary_every=0), **CPU)
+    # the JAX package's chains and tiles (tests/_torch_reference_tiles.py)
+    with reference_tiles():
+        sess = _sim_traced(T, TA.CloverLeaf2D(40, 24, summary_every=0), **CPU)
     jsess = _sim_traced(J, JA.CloverLeaf2D(40, 24, summary_every=0))
     tr = sess.trace()
     ledgers = sess.backend.ledgers

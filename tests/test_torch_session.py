@@ -26,6 +26,9 @@ N, M, STEPS = 128, 64, 3            # 2-D heat: 32 tiles at a quarter capacity
 PROBLEM = 2 * (N + 2) * (M + 2) * 4  # u and tmp homes
 OOC = dict(hw="p100-pcie", capacity_bytes=PROBLEM / 4, cyclic=True,
            prefetch=True)
+# The port at the JAX package's 32 tiles: at a quarter capacity its chain
+# does not fit with the tile function's workspace charged (core/workspace.py)
+PORT_OOC = dict(OOC, num_tiles=32, capacity_bytes=float("inf"))
 PORT_BACKENDS = ("reference", "ooc", "ooc-async", "cuda")
 
 
@@ -92,7 +95,7 @@ def jax_runs(homes):
 
 @pytest.fixture(scope="module")
 def port_runs(homes):
-    kw = {"ooc": OOC, "ooc-async": OOC}
+    kw = {"ooc": PORT_OOC, "ooc-async": PORT_OOC}
     return {b: _run("torch", b, homes, **kw.get(b, {})) for b in PORT_BACKENDS}
 
 
@@ -109,7 +112,7 @@ def test_fields_and_reductions_match_jax(backend, jax_backend, jax_runs, port_ru
 def test_jax_ooc_config_runs_out_of_core(jax_runs, port_runs):
     for runs in (jax_runs, port_runs):
         hist = runs["ooc"][2].history
-        assert len(hist) == 1 and hist[0].num_tiles > 1
+        assert len(hist) == 1 and hist[0].num_tiles == PORT_OOC["num_tiles"]
 
 
 def test_ooc_async_bit_identical_to_ooc(port_runs):
@@ -172,7 +175,10 @@ def test_small_slot_pools_match_reference(num_slots, homes, jax_runs):
 def test_lossy_codec_roundtrips_through_numpy_like_jax(homes):
     kw = dict(hw="p100-pcie", capacity_bytes=PROBLEM / 4, codec="bf16")
     want = _run("jax", "ooc", homes, **kw)
-    got = _run("torch", "ooc", homes, **kw)
+    got = _run("torch", "ooc", homes, **dict(kw, num_tiles=PORT_OOC["num_tiles"],
+                                               capacity_bytes=float("inf")))
+    assert [h.num_tiles for h in got[2].history] == [
+        h.num_tiles for h in want[2].history]
     np.testing.assert_allclose(got[0], want[0], **FIELD)
     st = got[2].transfer_stats()
     assert st["bytes_up_wire"] < st["bytes_up_raw"]
@@ -187,7 +193,7 @@ def test_pinned_dataset_and_resident_match_reference(homes, jax_runs):
 
 
 def test_traced_run_emits_lane_spans_and_stays_bit_identical(homes, port_runs):
-    got = _run("torch", "ooc-async", homes, trace=True, **OOC)
+    got = _run("torch", "ooc-async", homes, trace=True, **PORT_OOC)
     assert np.array_equal(got[0], port_runs["ooc"][0])
     tracks = {s.track for s in got[2].trace().spans()}
     assert {"upload", "download", "chain"} <= tracks
@@ -304,14 +310,16 @@ def split_runs():
     runs = {"reference": _run("torch", "reference", homes)}
     for prefetch in (False, True):
         runs[prefetch] = _run("torch", "ooc", homes, hw="p100-pcie",
-                              capacity_bytes=SPLIT_PROBLEM / 4, cyclic=True,
+                              capacity_bytes=SPLIT_PROBLEM / 2, cyclic=True,
                               prefetch=prefetch)
     return runs
 
 
 @pytest.mark.parametrize("prefetch", [False, True])
 def test_split_cyclic_heat_equals_reference(prefetch, split_runs):
-    """At a quarter capacity the heat chain splits in two.  ``u`` is read
+    """At half its homes the heat chain splits in two (at a quarter before
+    the tile function's workspace was charged, where it now splits in four).
+    ``u`` is read
     first by the whole chain but written first by the tail, so the tail
     must not treat it as a dead Cyclic temporary (it came back 0.242 off
     before the split kept read-first datasets live)."""

@@ -418,7 +418,7 @@ def test_sim4_run_matches_jax_reference(jax_cl2d):
     _assert_matches_jax(app, app.run(sess, steps=2), jax_cl2d)
 
 
-def _split_session(backend, mesh="sim:2", cap_frac=0.1, **kw):
+def _split_session(backend, mesh="sim:2", cap_frac=0.15, **kw):
     app = TA.CloverLeaf2D(40, 32, summary_every=2)
     sess = T.Session(backend, mesh=mesh, device="cpu",
                      capacity_bytes=app.total_bytes() * cap_frac, **kw)
@@ -427,7 +427,9 @@ def _split_session(backend, mesh="sim:2", cap_frac=0.1, **kw):
 
 @pytest.mark.parametrize("backend", ["sim", "ooc-sharded"])
 def test_split_plans_match_execution(backend):
-    """At a tenth of the homes every shard's segment splits: the planned
+    """At 0.15 of the homes every shard's segment splits (at a tenth
+    before the tile function's workspace was charged, which no longer fits
+    single loops at this size): the planned
     halo messages and computes equal what execution records (plan and run
     take their halves from the same ``split_chain``)."""
     app, sess = _split_session(backend)

@@ -19,6 +19,7 @@ part as CUDA graphs on a card, ``tests/test_torch_tile_graph_cuda.py``).
   computes with the new one (fields against JAX ``reference``, rtol 1e-4 /
   atol 1e-5).
 """
+import contextlib
 import hashlib
 from collections import defaultdict
 
@@ -29,6 +30,7 @@ torch = pytest.importorskip("torch")
 
 import repro_torch.apps as TA  # noqa: E402
 import repro_torch.core as T  # noqa: E402
+from _torch_reference_tiles import reference_tiles  # noqa: E402
 from repro_torch.kernels import star2d_kernel as torch_star2d  # noqa: E402
 
 FIELD = dict(rtol=1e-4, atol=1e-5)
@@ -109,9 +111,13 @@ def digests() -> dict:
             ("cloverleaf3d", "cloverleaf3d", "ooc", dict(num_tiles=3)),
             ("opensbli", "opensbli", "ooc", dict(num_tiles=3))):
         app = _make_app(TA, app_name)
-        cap = app.total_bytes() / 3 if kw.pop("split", False) else float("inf")
+        split = kw.pop("split", False)
+        cap = app.total_bytes() / 3 if split else float("inf")
         sess = T.Session(backend, device="cpu", capacity_bytes=cap, prefetch=True, **kw)
-        summary = app.run(sess, steps=2)
+        # the split case at the parent's tile counts: the digests hold the
+        # tile function, not the planner (tests/_torch_reference_tiles.py)
+        with reference_tiles() if split else contextlib.nullcontext():
+            summary = app.run(sess, steps=2)
         sess.close()
         out[name] = _sha([app.dats[n].to_numpy() for n in sorted(app.dats)]
                          + [np.array([summary[k] for k in sorted(summary)], np.float64)])

@@ -139,7 +139,8 @@ def test_a_replaced_slot_tensor_is_refused():
     slots = {n: torch.zeros((cp.sched.max_fp_len[n], 18), device="cuda")
              for n in ("u", "tmp")}
     origins = [dict(o) for o in cp.ir.tile_origins]
-    graphs = TileGraphs(cp.engine, torch.device("cuda"), slots.values())
+    graphs = TileGraphs(cp.engine, torch.device("cuda"), slots.values(),
+                        torch.cuda.MemPool())
     try:
         tiles = cp.sched.tiles
         i = next(i for i in range(1, len(tiles))

@@ -23,6 +23,7 @@ import repro.apps as JA  # noqa: E402
 import repro.core as J  # noqa: E402
 import repro_torch.apps as TA  # noqa: E402
 import repro_torch.core as T  # noqa: E402
+from _torch_reference_tiles import reference_tiles  # noqa: E402
 
 APPS = {"cloverleaf2d": lambda A: A.CloverLeaf2D(48, 32),
         "cloverleaf3d": lambda A: A.CloverLeaf3D(16, 48, 10),
@@ -209,7 +210,8 @@ def test_tune_picks_the_jax_winner():
     """The default grid: the same winner, the same modelled makespan and
     feasibility for every candidate."""
     _, want = _tune(J)
-    sess, got = _tune(T)
+    with reference_tiles():   # the JAX package's tile counts
+        sess, got = _tune(T)
     pick = lambda r: (r.best.num_tiles, r.best.num_slots, r.best.tiled_dim,  # noqa: E731
                       r.best.codec)
     assert pick(got) == pick(want)
@@ -234,8 +236,9 @@ def test_tune_mesh_grid_raises_for_sharding():
     ``sim:2`` beside the unsharded config, with the JAX package's rows and
     winner.  (It raised before sharded execution was ported.)"""
     grid = dict(num_tiles=(16,), num_slots=(3,), tiled_dims=(0,), meshes=[1, 2])
-    sess, _ = _tune(T, num_tiles=(16,), num_slots=(3,), tiled_dims=(0,))
-    got = sess.tune(**grid)
+    with reference_tiles():   # the JAX package's tile counts
+        sess, _ = _tune(T, num_tiles=(16,), num_slots=(3,), tiled_dims=(0,))
+        got = sess.tune(**grid)
     jsess, _ = _tune(J, num_tiles=(16,), num_slots=(3,), tiled_dims=(0,))
     want = jsess.tune(**grid)
     assert {r["mesh"] for r in got.rows} == {None, "sim:2"}
